@@ -1,0 +1,547 @@
+"""Level-packed trie automaton: the host-side compiler for the device walk
+(copy of the compile and probe-tokenization parts of
+``bifromq_tpu/models/automaton.py``).
+
+The whole multi-tenant route table compiles into flat int32 tables that
+live in device memory, and batches of topics match with a fixed-shape NFA
+walk (``ops/match.py``, ``csrc/fused_walk.cu``).
+
+Table layout (all int32):
+
+- ``node_tab [N, 12]``: packed per-node record:
+    col 0  plus_child   ('+' child node id, -1 if none)
+    col 1  hash_child   ('#' child node id, -1 if none)
+    col 2  route_start  (first matching slot attached to this node)
+    col 3  route_count  (number of matching slots at this node)
+    col 4  subtree_end  (DFS pre-order: subtree of n is [n, subtree_end[n)))
+    col 5  child_count  (number of literal children)
+    col 6  child_start  (into child_list)
+    col 7  subtree_route_count (total matchings in subtree)
+    col 8  sys_child_count ('$'-prefixed literal children; they sort FIRST)
+    col 9  sys_slot_count  (matchings inside those children's subtrees)
+    col 10 hash_rcount  (route_count of the '#' child, 0 if none — folded
+           into the parent record so the walk needs no extra gather)
+    col 11 hash_rstart  (route_start of the '#' child, folded likewise)
+- ``edge_tab [NB, P, 4]``: single-choice bucketed hash table of literal
+  edges, entries ``(node, h1, h2, child)``. Every key lives in bucket
+  mix1(key), so a device lookup reads exactly ONE contiguous bucket row.
+- ``child_list [E]``: literal child node ids in CSR order (DFS order).
+
+Level strings are hashed to 64 bits (two int32 lanes) with BLAKE2b + salt; the
+compiler detects the same-parent collision and recompiles with a new salt,
+so device matches are exact, not probabilistic.
+"""
+
+from __future__ import annotations
+
+import hashlib
+from dataclasses import dataclass
+from typing import Dict, List, Optional, Sequence, Tuple, Union
+
+import numpy as np
+
+from ..types import RouteMatcherType
+from ..utils import topic as topic_util
+from .oracle import Route, SubscriptionTrie, _TrieNode
+
+# node_tab column indices
+NODE_PLUS = 0
+NODE_HASH = 1
+NODE_RSTART = 2
+NODE_RCOUNT = 3
+NODE_SUB_END = 4
+NODE_CCOUNT = 5
+NODE_CSTART = 6
+NODE_SUB_RCOUNT = 7
+NODE_SYS_CCOUNT = 8
+NODE_SYS_SLOTS = 9
+NODE_HRCOUNT = 10
+NODE_HRSTART = 11
+NODE_COLS = 12
+
+_EMPTY = -1
+
+
+@dataclass(frozen=True)
+class GroupMatching:
+    """One matched shared-subscription group (≈ GroupMatching.java:34)."""
+    mqtt_topic_filter: str
+    ordered: bool
+    members: Tuple[Route, ...]
+
+
+Matching = Union[Route, GroupMatching]
+
+
+class HashCollisionError(RuntimeError):
+    pass
+
+
+def level_hash(level: str, salt: int) -> Tuple[int, int]:
+    """Stable 64-bit hash of a topic level, as two int32s."""
+    d = hashlib.blake2b(level.encode("utf-8"), digest_size=8,
+                        salt=salt.to_bytes(8, "little")).digest()
+    h1 = int.from_bytes(d[:4], "little", signed=True)
+    h2 = int.from_bytes(d[4:], "little", signed=True)
+    return h1, h2
+
+
+def _mix_u32(node: np.ndarray, h1: np.ndarray, h2: np.ndarray) -> np.ndarray:
+    """Bucket-choice mixer #1; MUST stay in sync with ops.match._mix_u32
+    and mix_u32 in csrc/fused_walk.cu."""
+    with np.errstate(over="ignore"):
+        x = node.astype(np.uint32) * np.uint32(0x9E3779B1)
+        x ^= h1.astype(np.uint32) * np.uint32(0x85EBCA6B)
+        x ^= x >> np.uint32(15)
+        x *= np.uint32(0xC2B2AE35)
+        x ^= h2.astype(np.uint32) * np.uint32(0x27D4EB2F)
+        x ^= x >> np.uint32(13)
+    return x
+
+
+@dataclass
+class CompiledTrie:
+    """Immutable compiled automaton (host numpy; see ops.match.DeviceTrie)."""
+    node_tab: np.ndarray          # [N, NODE_COLS] int32
+    edge_tab: np.ndarray          # [NB, P, 4] int32
+    child_list: np.ndarray        # [max(E,1)] int32
+    matchings: List[Matching]     # slot -> matching
+    tenant_root: Dict[str, int]
+    salt: int
+    probe_len: int
+    max_levels: int
+
+    @property
+    def n_nodes(self) -> int:
+        return self.node_tab.shape[0]
+
+    @property
+    def n_slots(self) -> int:
+        return len(self.matchings)
+
+    def root_of(self, tenant_id: str) -> int:
+        return self.tenant_root.get(tenant_id, _EMPTY)
+
+    # ---- slot metadata for vectorized host expansion ----------------------
+
+    SLOT_NORMAL = 0
+    SLOT_PERSISTENT = 1
+    SLOT_GROUP = 2
+
+    @property
+    def slot_kind(self) -> np.ndarray:
+        """[S] int8: SLOT_NORMAL / SLOT_PERSISTENT / SLOT_GROUP per slot."""
+        sk = getattr(self, "_slot_kind", None)
+        if sk is None or len(sk) != len(self.matchings):
+            from .oracle import PERSISTENT_SUB_BROKER_ID
+            sk = np.fromiter(
+                (self.SLOT_GROUP if isinstance(m, GroupMatching)
+                 else (self.SLOT_PERSISTENT
+                       if m.broker_id == PERSISTENT_SUB_BROKER_ID
+                       else self.SLOT_NORMAL)
+                 for m in self.matchings),
+                dtype=np.int8, count=len(self.matchings))
+            object.__setattr__(self, "_slot_kind", sk)
+        return sk
+
+    @property
+    def matchings_arr(self) -> np.ndarray:
+        """[S] object ndarray of matchings (fancy-indexable by slot id)."""
+        ma = getattr(self, "_matchings_arr", None)
+        if ma is None or len(ma) != len(self.matchings):
+            ma = np.empty(len(self.matchings), dtype=object)
+            for i, m in enumerate(self.matchings):
+                ma[i] = m
+            object.__setattr__(self, "_matchings_arr", ma)
+        return ma
+
+
+def _node_matchings(node: _TrieNode) -> List[Matching]:
+    out: List[Matching] = list(node.routes.values())
+    for members in node.groups.values():
+        if not members:
+            continue
+        first = next(iter(members.values()))
+        out.append(GroupMatching(
+            mqtt_topic_filter=first.matcher.mqtt_topic_filter,
+            ordered=first.matcher.type == RouteMatcherType.ORDERED_SHARE,
+            members=tuple(members.values()),
+        ))
+    return out
+
+
+def compile_tries(tries: Dict[str, SubscriptionTrie], *, max_levels: int = 16,
+                  probe_len: int = 16, salt: int = 0, min_edge_cap: int = 8,
+                  _max_salt_retries: int = 4) -> CompiledTrie:
+    """Compile per-tenant subscription tries into one packed automaton.
+
+    DFS pre-order numbering per tenant (tenants concatenated) gives contiguous
+    subtrees. Wildcard children ('+'/'#') become dedicated pointer columns;
+    literal children become hash-table edges.
+    """
+    for attempt in range(_max_salt_retries):
+        try:
+            return _compile_once(tries, max_levels=max_levels,
+                                 probe_len=probe_len, salt=salt + attempt,
+                                 min_edge_cap=min_edge_cap)
+        except HashCollisionError:
+            continue
+    raise HashCollisionError("level-hash collisions persisted across salts")
+
+
+def _compile_once(tries: Dict[str, SubscriptionTrie], *, max_levels: int,
+                  probe_len: int, salt: int, min_edge_cap: int) -> CompiledTrie:
+    # --- pass 1: DFS, assign pre-order ids, collect rows -------------------
+    tenant_root: Dict[str, int] = {}
+    matchings: List[Matching] = []
+    # per-node scratch rows; grown in DFS order so index == node id
+    plus_child: List[int] = []
+    hash_child: List[int] = []
+    route_start: List[int] = []
+    route_count: List[int] = []
+    subtree_end: List[int] = []
+    child_start: List[int] = []
+    child_count: List[int] = []
+    sub_rcount: List[int] = []
+    sys_ccount: List[int] = []
+    sys_slots: List[int] = []
+    # (nid, literal child ids); child_list CSR is emitted after the DFS so each
+    # node's children stay contiguous despite pre-order subtree allocation
+    pending_children: List[Tuple[int, List[int]]] = []
+    edges: List[Tuple[int, int, int, int]] = []  # (parent, h1, h2, child)
+
+    def alloc(node: _TrieNode) -> int:
+        nid = len(plus_child)
+        ms = _node_matchings(node)
+        plus_child.append(_EMPTY)
+        hash_child.append(_EMPTY)
+        route_start.append(len(matchings))
+        route_count.append(len(ms))
+        subtree_end.append(_EMPTY)
+        child_start.append(_EMPTY)
+        child_count.append(0)
+        sub_rcount.append(0)
+        sys_ccount.append(0)
+        sys_slots.append(0)
+        matchings.extend(ms)
+        return nid
+
+    def dfs(node: _TrieNode, nid: int) -> int:
+        """Returns total matchings in subtree of nid."""
+        total = route_count[nid]
+        literals: List[Tuple[str, _TrieNode]] = []
+        plus_node = None
+        hash_node = None
+        for level, child in node.children.items():
+            if level == topic_util.SINGLE_WILDCARD:
+                plus_node = child
+            elif level == topic_util.MULTI_WILDCARD:
+                hash_node = child
+            else:
+                literals.append((level, child))
+        # DFS order: literals ('$'-prefixed FIRST, then sorted), '+', '#' —
+        # sys-first keeps sys children contiguous for the root-wildcard rule.
+        literals.sort(key=lambda kv: (0 if kv[0].startswith(
+            topic_util.SYS_PREFIX) else 1, kv[0]))
+        seen: Dict[Tuple[int, int], str] = {}
+        lit_ids: List[int] = []
+        for level, child in literals:
+            h1, h2 = level_hash(level, salt)
+            prev = seen.get((h1, h2))
+            if prev is not None and prev != level:
+                raise HashCollisionError(f"collision {prev!r} vs {level!r}")
+            seen[(h1, h2)] = level
+            cid = alloc(child)
+            edges.append((nid, h1, h2, cid))
+            lit_ids.append(cid)
+            child_total = dfs(child, cid)
+            total += child_total
+            if level.startswith(topic_util.SYS_PREFIX):
+                sys_ccount[nid] += 1
+                sys_slots[nid] += child_total
+        if lit_ids:
+            pending_children.append((nid, lit_ids))
+        child_count[nid] = len(literals)
+        if plus_node is not None:
+            pid = alloc(plus_node)
+            plus_child[nid] = pid
+            total += dfs(plus_node, pid)
+        if hash_node is not None:
+            hid = alloc(hash_node)
+            hash_child[nid] = hid
+            total += dfs(hash_node, hid)
+        subtree_end[nid] = len(plus_child)
+        sub_rcount[nid] = total
+        return total
+
+    for tenant_id, trie in tries.items():
+        root = trie._root
+        rid = alloc(root)
+        tenant_root[tenant_id] = rid
+        dfs(root, rid)
+
+    child_list: List[int] = []
+    for nid, lit_ids in pending_children:
+        child_start[nid] = len(child_list)
+        child_list.extend(lit_ids)
+
+    n = len(plus_child)
+    node_tab = np.full((max(n, 1), NODE_COLS), _EMPTY, dtype=np.int32)
+    if n:
+        node_tab[:n, NODE_PLUS] = plus_child
+        node_tab[:n, NODE_HASH] = hash_child
+        node_tab[:n, NODE_RSTART] = route_start
+        node_tab[:n, NODE_RCOUNT] = route_count
+        node_tab[:n, NODE_SUB_END] = subtree_end
+        node_tab[:n, NODE_CCOUNT] = child_count
+        node_tab[:n, NODE_CSTART] = child_start
+        node_tab[:n, NODE_SUB_RCOUNT] = sub_rcount
+        node_tab[:n, NODE_SYS_CCOUNT] = sys_ccount
+        node_tab[:n, NODE_SYS_SLOTS] = sys_slots
+        hc = node_tab[:n, NODE_HASH]
+        node_tab[:n, NODE_HRCOUNT] = np.where(
+            hc >= 0, node_tab[hc.clip(0), NODE_RCOUNT], 0)
+        node_tab[:n, NODE_HRSTART] = np.where(
+            hc >= 0, node_tab[hc.clip(0), NODE_RSTART], 0)
+
+    # --- pass 2: build the open-addressing edge table ----------------------
+    edge_tab = _build_edge_table(edges, probe_len, min_cap=min_edge_cap)
+
+    cl = np.asarray(child_list, dtype=np.int32) if child_list else np.full(
+        1, _EMPTY, dtype=np.int32)
+    return CompiledTrie(
+        node_tab=node_tab,
+        edge_tab=edge_tab,
+        child_list=cl,
+        matchings=matchings,
+        tenant_root=tenant_root,
+        salt=salt,
+        probe_len=probe_len,
+        max_levels=max_levels,
+    )
+
+
+def _build_edge_table(edges: List[Tuple[int, int, int, int]],
+                      probe_len: int, min_cap: int = 2) -> np.ndarray:
+    """Single-choice bucketed hash insert → [n_buckets, probe_len, 4].
+
+    Every key lives in bucket mix1(key) & (nb-1), so the device lookup is
+    exactly ONE contiguous bucket-row read (ops.match._edge_lookup).
+    n_buckets (power of two) grows until no bucket exceeds probe_len
+    entries; the build is a vectorized sort-by-bucket.
+    """
+    n_edges = len(edges)
+    nb = max(min_cap, 2)
+    while nb * probe_len < 2 * max(n_edges, 1):
+        nb *= 2
+    if not n_edges:
+        return np.full((nb, probe_len, 4), _EMPTY, dtype=np.int32)
+    earr = np.asarray(edges, dtype=np.int32)
+    while True:
+        mask = np.uint32(nb - 1)
+        b1 = (_mix_u32(earr[:, 0], earr[:, 1], earr[:, 2])
+              & mask).astype(np.int64)
+        counts = np.bincount(b1, minlength=nb)
+        if counts.max() <= probe_len:
+            tab = np.full((nb, probe_len, 4), _EMPTY, dtype=np.int32)
+            order = np.argsort(b1, kind="stable")
+            sb = b1[order]
+            starts = np.concatenate(([0], np.cumsum(counts)[:-1]))
+            slots = np.arange(n_edges, dtype=np.int64) - starts[sb]
+            tab[sb, slots] = earr[order]
+            return tab
+        nb *= 2
+
+
+# --------------------------- probe tokenization ----------------------------
+
+def pad_rows(a: np.ndarray, rows: int, fill=0) -> np.ndarray:
+    """Pad a row-gathered array up to ``rows`` rows (escalation
+    sub-batches snap to power-of-two batch sizes)."""
+    if a.shape[0] == rows:
+        return a
+    out = np.full((rows,) + a.shape[1:], fill, dtype=a.dtype)
+    out[:a.shape[0]] = a
+    return out
+
+
+@dataclass
+class TokenizedTopics:
+    """Fixed-shape probe batch on the host. Padding rows have length == -1."""
+    tok_h1: np.ndarray    # [B, max_levels + 1] int32
+    tok_h2: np.ndarray    # [B, max_levels + 1] int32
+    lengths: np.ndarray   # [B] int32 (level count; -1 for padding rows)
+    roots: np.ndarray     # [B] int32 (tenant root node id, -1 unknown tenant)
+    sys_mask: np.ndarray  # [B] bool (first level starts with '$')
+
+    @property
+    def batch(self) -> int:
+        return self.tok_h1.shape[0]
+
+    def sub_batch(self, rows: np.ndarray, batch: int) -> "TokenizedTopics":
+        """Row-subset probe batch padded to ``batch`` rows — the
+        escalation re-walk's sub-batch constructor (shared with the
+        device-tokenized mirror, which re-tokenizes the selected rows)."""
+        return TokenizedTopics(
+            tok_h1=pad_rows(self.tok_h1[rows], batch),
+            tok_h2=pad_rows(self.tok_h2[rows], batch),
+            lengths=pad_rows(self.lengths[rows], batch, fill=_EMPTY),
+            roots=pad_rows(self.roots[rows], batch, fill=_EMPTY),
+            sys_mask=pad_rows(self.sys_mask[rows], batch))
+
+
+class TokenCache:
+    """Per-topic token-row LRU (topics repeat).
+
+    Keyed by the raw topic (string or level tuple); rows depend only on
+    (topic, salt, max_levels), so the cache SURVIVES trie recompiles —
+    only a salt change clears it. Roots are per-batch and never cached.
+    """
+
+    def __init__(self, max_entries: int = 1 << 18) -> None:
+        self.max_entries = max_entries
+        self._salt: Optional[int] = None
+        self._width: Optional[int] = None
+        # value: (h1_row [L+1] int32, h2_row, length, sys) — numpy rows
+        self._d: "dict" = {}
+        self.hits = 0
+        self.misses = 0
+
+    def match_config(self, salt: int, width: int) -> None:
+        if self._salt != salt or self._width != width:
+            self._d.clear()
+            self._salt, self._width = salt, width
+
+    def get(self, key):
+        v = self._d.get(key)
+        if v is not None:
+            self.hits += 1
+            # true LRU: refresh recency so the eviction sweep (insertion-
+            # ordered) drops cold keys, not the hottest ones
+            del self._d[key]
+            self._d[key] = v
+        else:
+            self.misses += 1
+        return v
+
+    def put(self, key, value) -> None:
+        if len(self._d) >= self.max_entries:
+            # amortized sweep: drop the oldest half (insertion order)
+            drop = len(self._d) // 2
+            for k in list(self._d)[:drop]:
+                del self._d[k]
+        self._d[key] = value
+
+
+def _tokenize_cached(keys, roots: Sequence[int], cache: TokenCache, *,
+                     batch: int, width: int, salt: int,
+                     miss_tokenize) -> TokenizedTopics:
+    """The ONE cache-probe + miss-fill + padded-assembly definition:
+    ``miss_tokenize(miss_idx)`` returns a TokenizedTopics for exactly
+    those rows; cached values are (h1_row, h2_row, length, sys)."""
+    cache.match_config(salt, width)
+    miss_idx = []
+    vals = []
+    for i, k in enumerate(keys):
+        v = cache.get(k)
+        vals.append(v)
+        if v is None:
+            miss_idx.append(i)
+    if miss_idx:
+        sub = miss_tokenize(miss_idx)
+        for j, i in enumerate(miss_idx):
+            v = (sub.tok_h1[j].copy(), sub.tok_h2[j].copy(),
+                 int(sub.lengths[j]), bool(sub.sys_mask[j]))
+            cache.put(keys[i], v)
+            vals[i] = v
+    tok_h1 = np.zeros((batch, width), dtype=np.int32)
+    tok_h2 = np.zeros((batch, width), dtype=np.int32)
+    lengths = np.full(batch, _EMPTY, dtype=np.int32)
+    rootv = np.full(batch, _EMPTY, dtype=np.int32)
+    sys_mask = np.zeros(batch, dtype=bool)
+    for i, (h1, h2, ln, sm) in enumerate(vals):
+        tok_h1[i] = h1
+        tok_h2[i] = h2
+        lengths[i] = ln
+        rootv[i] = roots[i] if ln >= 0 else _EMPTY
+        sys_mask[i] = sm
+    return TokenizedTopics(tok_h1=tok_h1, tok_h2=tok_h2,
+                           lengths=lengths, roots=rootv,
+                           sys_mask=sys_mask)
+
+
+def tokenize(topics, roots: Sequence[int], *, max_levels: int, salt: int,
+             batch: Optional[int] = None,
+             cache: Optional[TokenCache] = None) -> TokenizedTopics:
+    """Hash topic levels into a padded probe batch on the host.
+
+    ``topics`` are pre-parsed level lists (utils.topic.parse), raw topic
+    strings, or one pre-packed :class:`~bifromq_tpu_torch.models.bytetok.
+    TopicBytes` batch (which takes the vectorized numpy tokenizer);
+    ``roots`` the per-topic tenant root ids (CompiledTrie.root_of).
+    Topics longer than ``max_levels`` are marked as padding and must take
+    the host fallback. With ``cache``, repeated topics skip hashing.
+    """
+    from .bytetok import TopicBytes
+    if isinstance(topics, TopicBytes):
+        return _tokenize_topic_bytes(topics, roots, max_levels=max_levels,
+                                     salt=salt, batch=batch, cache=cache)
+    if cache is not None:
+        n = len(topics)
+        keys = [t if isinstance(t, (str, bytes)) else tuple(t)
+                for t in topics]
+        return _tokenize_cached(
+            keys, roots, cache, batch=batch or n,
+            width=max_levels + 1, salt=salt,
+            miss_tokenize=lambda idx: tokenize(
+                [topics[i] for i in idx], [0] * len(idx),
+                max_levels=max_levels, salt=salt))
+    n = len(topics)
+    b = batch or n
+    assert b >= n
+    width = max_levels + 1
+    tok_h1 = np.zeros((b, width), dtype=np.int32)
+    tok_h2 = np.zeros((b, width), dtype=np.int32)
+    lengths = np.full(b, _EMPTY, dtype=np.int32)
+    rootv = np.full(b, _EMPTY, dtype=np.int32)
+    sys_mask = np.zeros(b, dtype=bool)
+    for i, (levels, root) in enumerate(zip(topics, roots)):
+        if isinstance(levels, bytes):   # raw wire bytes (byte plane)
+            levels = levels.decode("utf-8")
+        if isinstance(levels, str):
+            levels = levels.split(topic_util.DELIMITER)
+        if len(levels) > max_levels:
+            continue  # leave as padding; caller falls back to oracle
+        lengths[i] = len(levels)
+        rootv[i] = root
+        if levels and levels[0].startswith(topic_util.SYS_PREFIX):
+            sys_mask[i] = True
+        for j, level in enumerate(levels):
+            h1, h2 = level_hash(level, salt)
+            tok_h1[i, j] = h1
+            tok_h2[i, j] = h2
+    return TokenizedTopics(tok_h1=tok_h1, tok_h2=tok_h2, lengths=lengths,
+                           roots=rootv, sys_mask=sys_mask)
+
+
+def _tokenize_topic_bytes(tb, roots: Sequence[int], *, max_levels: int,
+                          salt: int, batch: Optional[int],
+                          cache: Optional[TokenCache]) -> TokenizedTopics:
+    """The byte-plane leg of :func:`tokenize`: the vectorized numpy
+    tokenizer (``bytetok.tokenize_bytes``). With ``cache``, keys are the
+    raw byte slices."""
+    from . import bytetok
+    n = len(tb)
+    b = batch or n
+    assert b >= n
+    if cache is not None:
+        return _tokenize_cached(
+            [tb.row_bytes(i) for i in range(n)], roots, cache, batch=b,
+            width=max_levels + 1, salt=salt,
+            miss_tokenize=lambda idx: _tokenize_topic_bytes(
+                tb.select(idx), [0] * len(idx), max_levels=max_levels,
+                salt=salt, batch=None, cache=None))
+    h1, h2, lengths, rootv, sysm = bytetok.tokenize_bytes(
+        tb, roots, max_levels=max_levels, salt=salt, batch=b)
+    return TokenizedTopics(tok_h1=h1, tok_h2=h2, lengths=lengths,
+                           roots=rootv, sys_mask=sysm)

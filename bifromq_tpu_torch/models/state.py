@@ -1,0 +1,42 @@
+"""Carry compiled automaton state across from the JAX package.
+
+``device_trie_from_numpy`` takes the five leaves of a ``bifromq_tpu``
+``DeviceTrie`` as numpy arrays (``np.asarray(leaf)`` of each) and returns
+the port's :class:`~bifromq_tpu_torch.ops.match.DeviceTrie` on
+``device``, so the port can walk the very tables the reference compiled.
+The layouts are the same column for column.
+"""
+
+from __future__ import annotations
+
+from typing import Mapping
+
+import numpy as np
+import torch
+
+from ..ops.match import CT_COLS, RT_COLS, DeviceTrie
+from ..utils.device import resolve_device
+
+TRIE_LEAVES = ("node_tab", "edge_tab", "child_list", "count_tab", "route_tab")
+
+
+def device_trie_from_numpy(arrays: Mapping[str, np.ndarray],
+                           device=None) -> DeviceTrie:
+    """``arrays``: ``{node_tab, edge_tab, child_list, count_tab,
+    route_tab}`` as numpy arrays. ``device=None`` means the card."""
+    dev = resolve_device(device)
+    missing = [k for k in TRIE_LEAVES if k not in arrays]
+    if missing:
+        raise KeyError(f"missing DeviceTrie leaves: {missing}")
+    out = {}
+    for k in TRIE_LEAVES:
+        a = np.ascontiguousarray(arrays[k])
+        if a.dtype != np.int32:
+            raise ValueError(f"{k}: expected int32, got {a.dtype}")
+        out[k] = torch.from_numpy(a.copy()).to(dev)
+    if out["edge_tab"].dim() != 3 or out["edge_tab"].shape[2] != 4:
+        raise ValueError("edge_tab: expected [NB, P, 4]")
+    if out["count_tab"].shape[1] != CT_COLS or \
+            out["route_tab"].shape[1] != RT_COLS:
+        raise ValueError("count_tab/route_tab: unexpected column count")
+    return DeviceTrie(**out)

@@ -1,0 +1,39 @@
+"""MQTT topic constants and level parsing (copy of the parts of
+``bifromq_tpu/utils/topic.py`` the match plane uses).
+
+Reference: ``bifromq-util/src/main/java/org/apache/bifromq/util/TopicUtil.java``
+and ``TopicConst.java``.
+"""
+
+from __future__ import annotations
+
+from typing import List
+
+NUL = "\u0000"
+DELIMITER = "/"
+SINGLE_WILDCARD = "+"
+MULTI_WILDCARD = "#"
+SYS_PREFIX = "$"
+UNORDERED_SHARE = "$share"
+ORDERED_SHARE = "$oshare"
+
+_PREFIX_UNORDERED_SHARE = UNORDERED_SHARE + DELIMITER
+_PREFIX_ORDERED_SHARE = ORDERED_SHARE + DELIMITER
+
+
+def parse(topic: str, escaped: bool = False) -> List[str]:
+    """Split a topic/topic-filter into levels.
+
+    Mirrors TopicUtil.parse (TopicUtil.java:205): every separator produces a
+    new (possibly empty) level; "/" -> ["", ""].
+    """
+    sep = NUL if escaped else DELIMITER
+    return topic.split(sep)
+
+
+def is_unordered_shared(topic_filter: str) -> bool:
+    return topic_filter.startswith(_PREFIX_UNORDERED_SHARE)
+
+
+def is_ordered_shared(topic_filter: str) -> bool:
+    return topic_filter.startswith(_PREFIX_ORDERED_SHARE)

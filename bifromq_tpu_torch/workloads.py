@@ -1,0 +1,148 @@
+"""Workload generators (copy of the config-2 parts of
+``bifromq_tpu/workloads.py``).
+
+- ``config_wildcard``: BASELINE config 2, one tenant with wildcard-heavy
+  Zipf subscriptions (1M by default).
+- ``probe_topics``: concrete PUBLISH topics drawn from the same Zipf tree.
+- ``diverse_topics``: topic strings with realistic shapes (deep paths,
+  multi-byte UTF-8, empty levels, ``$SYS`` roots).
+
+Generation is deterministic per seed and draws the same ``random.Random``
+sequence as the reference generators, so both packages build identical
+tries and topics from one seed.
+"""
+
+from __future__ import annotations
+
+import random
+from typing import Dict, List, Sequence, Tuple
+
+from .models.oracle import Route, SubscriptionTrie
+from .types import RouteMatcher, RouteMatcherType
+from .utils import topic as topic_util
+
+
+def _zipf_levels(n_levels: int) -> Tuple[List[str], List[float]]:
+    """Returns (names, CUMULATIVE weights) — cumulative so random.choices
+    skips its per-call accumulate pass."""
+    names = [f"l{i}" for i in range(n_levels)]
+    acc, cum = 0.0, []
+    for i in range(n_levels):
+        acc += 1.0 / (i + 1)
+        cum.append(acc)
+    return names, cum
+
+
+def _mk_matcher(levels: Sequence[str]) -> RouteMatcher:
+    return RouteMatcher(type=RouteMatcherType.NORMAL,
+                        filter_levels=tuple(levels),
+                        mqtt_topic_filter="/".join(levels))
+
+
+def gen_filter_levels(rng: random.Random, names: List[str],
+                      weights: List[float], *, max_depth: int = 6,
+                      p_plus: float = 0.15, p_hash: float = 0.1) -> List[str]:
+    depth = rng.randint(1, max_depth)
+    levels = rng.choices(names, cum_weights=weights, k=depth)
+    for j in range(depth):
+        if rng.random() < p_plus:
+            levels[j] = topic_util.SINGLE_WILDCARD
+    if rng.random() < p_hash:
+        levels.append(topic_util.MULTI_WILDCARD)
+    return levels
+
+
+def gen_topic_levels(rng: random.Random, names: List[str],
+                     weights: List[float], *, max_depth: int = 6) -> List[str]:
+    depth = rng.randint(1, max_depth)
+    return rng.choices(names, cum_weights=weights, k=depth)
+
+
+def config_wildcard(n_subs: int = 1_000_000, *, seed: int = 0,
+                    n_level_names: int = 1000, max_depth: int = 6,
+                    persistent_ratio: float = 0.1,
+                    deliverer_key=lambda i: f"d{i % 64}"
+                    ) -> Dict[str, SubscriptionTrie]:
+    """Config 2: one tenant, wildcard-heavy Zipf subscriptions.
+
+    ``deliverer_key(i)`` names subscription ``i``'s delivery target; the
+    default is the reference's ``d{i % 64}`` (no server prefix, so every
+    slot falls in the UNKNOWN peer bucket)."""
+    rng = random.Random(seed)
+    names, weights = _zipf_levels(n_level_names)
+    trie = SubscriptionTrie()
+    for i in range(n_subs):
+        levels = gen_filter_levels(rng, names, weights, max_depth=max_depth)
+        broker = 1 if rng.random() < persistent_ratio else 0
+        trie.add(Route(matcher=_mk_matcher(levels), broker_id=broker,
+                       receiver_id=f"r{i}", deliverer_key=deliverer_key(i)))
+    return {"tenant0": trie}
+
+
+def probe_topics(n: int, *, seed: int = 1, n_level_names: int = 1000,
+                 max_depth: int = 6) -> List[List[str]]:
+    """Concrete PUBLISH topics drawn from the same Zipf tree."""
+    rng = random.Random(seed)
+    names, weights = _zipf_levels(n_level_names)
+    return [gen_topic_levels(rng, names, weights, max_depth=max_depth)
+            for _ in range(n)]
+
+
+# ---------------------- topic-diversity generator --------------------------
+
+TENANT_TOPIC_PROFILES: dict = {
+    # flat sensor telemetry: shallow, short ASCII levels, numeric leaf
+    "telemetry": dict(weight=0.40, depth=(3, 6), seg_len=(3, 10),
+                      unicode_p=0.0, numeric_leaf_p=0.8, sys_p=0.0),
+    # fleet/vehicle: deep paths, mid-size levels, uuid-ish leaves
+    "fleet": dict(weight=0.25, depth=(6, 12), seg_len=(6, 18),
+                  unicode_p=0.02, numeric_leaf_p=0.5, sys_p=0.0),
+    # retail/i18n: shallow but multi-byte-UTF-8-heavy long levels
+    "retail_i18n": dict(weight=0.20, depth=(2, 5), seg_len=(4, 24),
+                        unicode_p=0.6, numeric_leaf_p=0.1, sys_p=0.0),
+    # operational $SYS streams (exercises the sys-root walk rule)
+    "sysmon": dict(weight=0.05, depth=(2, 4), seg_len=(4, 12),
+                   unicode_p=0.0, numeric_leaf_p=0.0, sys_p=1.0),
+    # adversarial edge: empty levels / separator runs / deep shapes
+    "edge": dict(weight=0.10, depth=(1, 15), seg_len=(0, 8),
+                 unicode_p=0.1, numeric_leaf_p=0.2, sys_p=0.0),
+}
+
+_UNICODE_SEGS = ["日本語", "センサー", "größe", "müller", "caféteria",
+                 "датчик", "température", "aßßen", "चैनल", "중계기"]
+_ASCII = "abcdefghijklmnopqrstuvwxyz"
+
+
+def diverse_topics(n: int, *, seed: int = 0,
+                   profiles: dict = None) -> List[str]:
+    """``n`` topic STRINGS drawn from the tenant profiles above.
+    Deterministic per seed."""
+    rng = random.Random(seed)
+    profs = profiles or TENANT_TOPIC_PROFILES
+    names = list(profs)
+    cum: List[float] = []
+    acc = 0.0
+    for p in names:
+        acc += profs[p]["weight"]
+        cum.append(acc)
+    out: List[str] = []
+    for _ in range(n):
+        p = profs[rng.choices(names, cum_weights=cum, k=1)[0]]
+        depth = rng.randint(*p["depth"])
+        levels: List[str] = []
+        for j in range(depth):
+            lo, hi = p["seg_len"]
+            seg_len = rng.randint(lo, hi)
+            if seg_len == 0:
+                levels.append("")       # empty level / separator run
+            elif rng.random() < p["unicode_p"]:
+                levels.append(rng.choice(_UNICODE_SEGS))
+            else:
+                levels.append("".join(rng.choice(_ASCII)
+                                      for _ in range(seg_len)))
+        if p["sys_p"] and rng.random() < p["sys_p"]:
+            levels.insert(0, "$SYS")
+        if levels and rng.random() < p["numeric_leaf_p"]:
+            levels.append(f"d{rng.randrange(1 << 20)}")
+        out.append("/".join(levels) if levels else "x")
+    return out

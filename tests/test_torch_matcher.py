@@ -1,0 +1,161 @@
+"""Port parity: TorchMatcher against TpuMatcher, and the import boundary.
+
+``TorchMatcher(device="cpu")`` (plain versions of all three kernels) and
+the reference ``TpuMatcher(match_cache=False)`` take one randomized query
+stream with add/remove churn, ``$share`` groups, fan-out caps, an unknown
+tenant, small walk budgets (so escalation and the oracle fallback run)
+and a small expansion buffer (so truncated rows re-expand on the host).
+Both run the overlay + compaction path (the reference with
+``BIFROMQ_PATCH=0``; the port does not patch in place yet). Every query's
+``MatchedRoutes`` must be identical as normalized tuples, in order, and
+the device-bucketed ``last_expanded`` pairs must be array-equal.
+Tolerance: exact equality.
+"""
+
+import os
+import random
+import subprocess
+import sys
+
+import numpy as np
+import pytest
+import torch
+
+from bifromq_tpu.models.matcher import TpuMatcher
+from bifromq_tpu.models.oracle import Route as JRoute
+from bifromq_tpu.types import RouteMatcher as JMatcher
+from bifromq_tpu_torch.models.matcher import TorchMatcher
+from bifromq_tpu_torch.models.oracle import Route as TRoute
+from bifromq_tpu_torch.types import RouteMatcher as TMatcher
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+NAMES = [f"n{i}" for i in range(5)]
+
+
+def _norm(m):
+    return (tuple((r.matcher.mqtt_topic_filter, r.receiver_url, r.broker_id,
+                   r.incarnation) for r in m.normal),
+            tuple((f, tuple(r.receiver_url for r in ms))
+                  for f, ms in m.groups.items()),
+            m.persistent_fanout, m.max_persistent_fanout_exceeded,
+            m.max_group_fanout_exceeded)
+
+
+def _route_spec(rng, i):
+    levels = [rng.choice(NAMES + ["+"]) for _ in range(rng.randint(1, 4))]
+    if rng.random() < 0.3:
+        levels.append("#")
+    if rng.random() < 0.05:
+        levels[0] = "$SYS"
+    f = "/".join(levels)
+    if rng.random() < 0.15:
+        f = f"{rng.choice(['$share', '$oshare'])}/g{i % 2}/{f}"
+    return (f, i % 2, f"r{i}", f"srv{i % 3}|d{i}", rng.randint(0, 2))
+
+
+def _routes(spec):
+    f, broker, rcv, dkey, inc = spec
+    return (JRoute(JMatcher.from_topic_filter(f), broker, rcv, dkey, inc),
+            TRoute(TMatcher.from_topic_filter(f), broker, rcv, dkey, inc))
+
+
+def _queries(rng, n):
+    out = []
+    for _ in range(n):
+        t = [rng.choice(NAMES) for _ in range(rng.randint(1, 5))]
+        if rng.random() < 0.1:
+            t[0] = "$SYS"
+        tenant = "ghost" if rng.random() < 0.05 else "T"
+        out.append((tenant, "/".join(t)) if rng.random() < 0.8
+                   else (tenant, t))
+    return out
+
+
+def _check_round(ref, port, queries, **caps):
+    a = ref.match_batch(queries, **caps)
+    b = port.match_batch(queries, **caps)
+    assert [_norm(m) for m in a] == [_norm(m) for m in b]
+    (rp, rtab), (pp, ptab) = ref.last_expanded, port.last_expanded
+    for f in ("slots", "rows", "row_offsets", "trunc", "peer_slots",
+              "peer_rows", "peer_offsets"):
+        assert np.array_equal(np.asarray(getattr(rp, f)),
+                              getattr(pp, f)), f
+    assert int(rp.n_pairs) == int(pp.n_pairs)
+    assert rtab.peers == ptab.peers
+    assert np.array_equal(rtab.slot_peer, ptab.slot_peer)
+    return bool(pp.res.overflow.any()), bool(pp.trunc.any())
+
+
+def test_torch_matcher_equals_tpu_matcher_under_churn(monkeypatch):
+    monkeypatch.setenv("BIFROMQ_PATCH", "0")
+    monkeypatch.setenv("BIFROMQ_EXPAND_CAP", "1")
+    kw = dict(k_states=4, max_intervals=4, auto_compact=False)
+    ref = TpuMatcher(match_cache=False, **kw)
+    port = TorchMatcher(device="cpu", **kw)
+    rng = random.Random(0)
+    specs = [_route_spec(rng, i) for i in range(160)]
+    for spec in specs:
+        jr, tr = _routes(spec)
+        assert ref.add_route("T", jr) == port.add_route("T", tr)
+    ref.refresh()
+    port.refresh()
+    seen = [_check_round(ref, port, _queries(rng, 24))]
+    for rnd in range(3):
+        for _ in range(12):
+            if rng.random() < 0.6:
+                spec = _route_spec(rng, rng.randrange(400))
+                jr, tr = _routes(spec)
+                assert ref.add_route("T", jr) == port.add_route("T", tr)
+            else:
+                f, broker, rcv, dkey, inc = rng.choice(specs)
+                jr, tr = _routes((f, broker, rcv, dkey, inc))
+                assert (ref.remove_route("T", jr.matcher, jr.receiver_url,
+                                         inc)
+                        == port.remove_route("T", tr.matcher,
+                                             tr.receiver_url, inc))
+        caps = ({} if rnd != 1 else
+                dict(max_persistent_fanout=2, max_group_fanout=1))
+        seen.append(_check_round(ref, port, _queries(rng, 24), **caps))
+        if rnd == 1:
+            ref.refresh()
+            port.refresh()
+            assert port.overlay_size == 0
+    assert port.compile_count == 2
+    # the walk-overflow (escalation) and buffer-truncation legs both ran
+    assert any(o for o, _ in seen) and any(t for _, t in seen)
+
+
+def test_torch_matcher_needs_a_card_unless_asked_for_cpu():
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA card is present: the default device is valid")
+    with pytest.raises(RuntimeError):
+        TorchMatcher()
+
+
+_SERVE_WITHOUT_JAX = """
+import sys
+from bifromq_tpu_torch import workloads
+from bifromq_tpu_torch.models.matcher import TorchMatcher
+import bifromq_tpu_torch.models.state, bifromq_tpu_torch.dist.deliverer
+m = TorchMatcher.from_tries(workloads.config_wildcard(500, seed=0),
+                            device="cpu")
+topics = ["/".join(t) for t in workloads.probe_topics(32, seed=1)]
+res = m.match_batch([("tenant0", t) for t in topics])
+oracle = m.match_from_tries([("tenant0", t) for t in topics])
+assert [len(r.all_routes()) for r in res] == \
+    [len(r.all_routes()) for r in oracle]
+assert "jax" not in sys.modules, "jax imported"
+bad = [k for k in sys.modules
+       if k == "bifromq_tpu" or k.startswith("bifromq_tpu.")]
+assert not bad, bad
+print("served", sum(len(r.all_routes()) for r in res))
+"""
+
+
+def test_port_serves_without_importing_jax_or_the_reference():
+    env = dict(os.environ, PYTHONPATH=REPO)
+    out = subprocess.run([sys.executable, "-c", _SERVE_WITHOUT_JAX],
+                         cwd=REPO, env=env, capture_output=True, text=True,
+                         timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.startswith("served")

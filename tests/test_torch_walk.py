@@ -1,0 +1,170 @@
+"""Port parity: the fused walk's plain version against the JAX package.
+
+``bifromq_tpu_torch.ops.match.walk_routes`` (the plain PyTorch version of
+``csrc/fused_walk.cu``, and what ``models.kernels.fused_walk_routes`` runs
+on CPU tensors) must be array-equal to the reference's lax
+``walk_routes(esc_k=0)``, its escalating variant, and the Pallas
+``fused_walk_routes`` in interpret mode, on the same compiled tables and
+tokens. Tolerance: exact equality — every output is int32 or bool.
+Small K/A budgets make the state-overflow and interval-overflow rows
+occur.
+"""
+
+import random
+
+import numpy as np
+import pytest
+import torch
+
+from bifromq_tpu.models.automaton import compile_tries, tokenize
+from bifromq_tpu.models.kernels import fused_walk_routes as jax_fused
+from bifromq_tpu.models.oracle import Route, SubscriptionTrie
+from bifromq_tpu.ops import match as jm
+from bifromq_tpu.types import RouteMatcher
+from bifromq_tpu import workloads as jw
+from bifromq_tpu_torch.models import automaton as ta
+from bifromq_tpu_torch.models import kernels as tk
+from bifromq_tpu_torch.ops import match as tm
+from bifromq_tpu_torch import workloads as tw
+
+FIELDS = ("start", "count", "n_routes", "overflow")
+
+
+def _world(seed: int):
+    """Hand-made '+'/'#'/'$SYS'/'$share' filters over a small alphabet,
+    plus deep topics (past max_levels) and '$SYS' probes."""
+    rng = random.Random(seed)
+    names = [f"n{i}" for i in range(6)]
+    trie = SubscriptionTrie()
+    for i in range(150):
+        levels = [rng.choice(names + ["+"]) for _ in range(rng.randint(1, 5))]
+        if rng.random() < 0.25:
+            levels.append("#")
+        if rng.random() < 0.1:
+            levels[0] = "$SYS"
+        f = "/".join(levels)
+        if rng.random() < 0.1:
+            f = f"$share/g{i % 3}/{f}"
+        trie.add(Route(matcher=RouteMatcher.from_topic_filter(f),
+                       broker_id=i % 2, receiver_id=f"r{i}",
+                       deliverer_key="d0"))
+    topics = []
+    for _ in range(48):
+        t = [rng.choice(names) for _ in range(rng.randint(1, 6))]
+        if rng.random() < 0.15:
+            t[0] = "$SYS"
+        topics.append(t)
+    topics.append(["n0"] * 12)        # deeper than max_levels: padding
+    topics.append(["#"])
+    return {"T": trie}, topics
+
+
+def _tables(tries, topics, max_levels=8, batch=64):
+    ct = compile_tries(tries, max_levels=max_levels)
+    tok = tokenize(topics, [ct.root_of("T")] * len(topics),
+                   max_levels=ct.max_levels, salt=ct.salt, batch=batch)
+    return ct, tok
+
+
+def _port_probes(tok):
+    return tm.Probes(*(torch.from_numpy(np.asarray(a)) for a in (
+        tok.tok_h1, tok.tok_h2, tok.lengths, tok.roots, tok.sys_mask)),
+        max_len=int(tok.lengths.max()))
+
+
+def _port_trie(ct):
+    return tm.DeviceTrie.from_compiled(ct, device="cpu")
+
+
+def _assert_equal(ref, got, what):
+    for f in FIELDS:
+        a = np.asarray(getattr(ref, f))
+        b = getattr(got, f).numpy()
+        assert a.shape == b.shape and (a == b).all(), f"{what}: {f}"
+
+
+@pytest.mark.parametrize("seed,k,a", [(0, 32, 32), (1, 4, 4), (3, 6, 5)])
+def test_plain_walk_equals_lax_walk(seed, k, a):
+    tries, topics = _world(seed)
+    ct, tok = _tables(tries, topics)
+    kw = dict(probe_len=ct.probe_len, k_states=k, max_intervals=a)
+    ref = jm.walk_routes(jm.DeviceTrie.from_compiled(ct),
+                         jm.Probes.from_tokenized(tok), esc_k=0, **kw)
+    got = tk.fused_walk_routes(_port_trie(ct), _port_probes(tok), **kw)
+    _assert_equal(ref, got, f"seed {seed} K {k} A {a}")
+    if k == 4:
+        assert np.asarray(ref.overflow).any()   # overflow rows exercised
+
+
+@pytest.mark.parametrize("seed,k,a", [(5, 4, 4)])
+def test_plain_walk_equals_pallas_interpret(seed, k, a):
+    tries, topics = _world(seed)
+    ct, tok = _tables(tries, topics)
+    kw = dict(probe_len=ct.probe_len, k_states=k, max_intervals=a)
+    ref = jax_fused(jm.DeviceTrie.from_compiled(ct),
+                    jm.Probes.from_tokenized(tok), interpret=True, **kw)
+    got = tk.fused_walk_routes(_port_trie(ct), _port_probes(tok), **kw)
+    _assert_equal(ref, got, f"pallas seed {seed}")
+
+
+@pytest.mark.parametrize("k,a,esc_k,esc_rows", [(4, 8, 16, 2)])
+def test_escalating_walk_equals_reference(k, a, esc_k, esc_rows):
+    tries, topics = _world(7)
+    ct, tok = _tables(tries, topics)
+    kw = dict(probe_len=ct.probe_len, k_states=k, max_intervals=a,
+              esc_k=esc_k, esc_rows=esc_rows)
+    ref = jm.walk_routes(jm.DeviceTrie.from_compiled(ct),
+                         jm.Probes.from_tokenized(tok), **kw)
+    got = tm.walk_routes(_port_trie(ct), _port_probes(tok), **kw)
+    _assert_equal(ref, got, "escalation")
+
+
+def test_config_wildcard_walk_from_port_compile():
+    """Both packages generate, compile and tokenize config 2 at 3K subs
+    from one seed; the port walks its OWN tables."""
+    ref_ct = compile_tries(jw.config_wildcard(3000, seed=11))
+    port_ct = ta.compile_tries(tw.config_wildcard(3000, seed=11))
+    topics = ["/".join(t) for t in tw.probe_topics(120, seed=3)]
+    roots = [ref_ct.root_of("tenant0")] * len(topics)
+    tok = tokenize(topics, roots, max_levels=16, salt=ref_ct.salt,
+                   batch=128)
+    port_tok = ta.tokenize(topics, roots, max_levels=16, salt=port_ct.salt,
+                           batch=128)
+    kw = dict(probe_len=16, k_states=8, max_intervals=8)
+    ref = jm.walk_routes(jm.DeviceTrie.from_compiled(ref_ct),
+                         jm.Probes.from_tokenized(tok), esc_k=0, **kw)
+    got = tk.fused_walk_routes(_port_trie(port_ct),
+                               tm.Probes.from_tokenized(port_tok, "cpu"),
+                               **kw)
+    _assert_equal(ref, got, "config_wildcard")
+
+
+@pytest.mark.parametrize("vals", [
+    (0, 0, 0), (0xFFFFFFFF, -1, -1), (2**31 - 1, -2**31, 2**31 - 1),
+    (123456789, -987654321, 55555)])
+def test_mix_u32_edges(vals):
+    from bifromq_tpu.models.automaton import _mix_u32 as ref_mix
+    node, h1, h2 = vals
+    node32 = np.array([node], dtype=np.uint32).astype(np.int32)
+    ref = ref_mix(node32, np.array([h1], np.int32), np.array([h2], np.int32))
+    got = tm._mix_u32(torch.from_numpy(node32), torch.tensor([h1],
+                      dtype=torch.int32), torch.tensor([h2],
+                                                       dtype=torch.int32))
+    assert int(got[0]) == int(ref[0])
+
+
+def test_mix_u32_random_lanes():
+    from bifromq_tpu.models.automaton import _mix_u32 as ref_mix
+    rng = np.random.default_rng(0)
+    a, b, c = (rng.integers(-2**31, 2**31, size=4096, dtype=np.int64)
+               .astype(np.int32) for _ in range(3))
+    got = tm._mix_u32(*(torch.from_numpy(x) for x in (a, b, c))).numpy()
+    assert (got == ref_mix(a, b, c).astype(np.int64)).all()
+
+
+def test_bitonic_matches_sort():
+    rng = np.random.default_rng(1)
+    x = torch.from_numpy(rng.integers(-1, 50, size=(16, 12),
+                                      dtype=np.int32))
+    assert torch.equal(tm._bitonic_desc(x)[:, :12],
+                       torch.sort(x, dim=1, descending=True).values)
