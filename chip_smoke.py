@@ -42,7 +42,7 @@ N_SUBS = 1_000_000       # BASELINE config 2
 N_PEER_SUBS = 100_000
 N_SERVE_BATCHES = 3
 ORACLE_SAMPLE = 256
-# H100 SXM published peaks (on-chip-measurement guide): HBM bytes/s, and
+# H100 SXM published peaks (NVIDIA H100 datasheet): HBM bytes/s, and
 # the 67 TFLOP/s float32 non-tensor rate, used for 32-bit integer ops
 HBM_BPS = 3.35e12
 INT32_OPS = 67e12
