@@ -10,6 +10,9 @@
   one thread per output position. The O(B·A) prefix sums stay plain
   PyTorch outside the kernel, as in the reference. Identical to
   ``ops.match._expand_pairs``.
+- :func:`ring_hop` launches ``csrc/ring_hop.cu``: one right-rotate hop
+  of the mesh ring along one axis of an ``[R, S, n]`` block grid, one
+  thread per output element. Identical to :func:`ring_hop_plain`.
 
 On CPU tensors each wrapper runs its plain version; on CUDA tensors it
 launches its kernel or raises. The tables stay in device memory: there
@@ -39,6 +42,10 @@ EXPAND = CudaKernel(
     "expand.cu", "expand_pairs",
     [ctypes.c_void_p] * 3 + [ctypes.c_int] * 3 + [ctypes.c_void_p] * 2
     + [ctypes.c_void_p])
+
+RING_HOP = CudaKernel(
+    "ring_hop.cu", "ring_hop",
+    [ctypes.c_void_p] * 2 + [ctypes.c_int] * 4 + [ctypes.c_void_p])
 
 
 def fused_walk_routes(trie: DeviceTrie, probes: Probes, *, probe_len: int,
@@ -105,3 +112,31 @@ def kernel_expand(ivl_s: torch.Tensor, ivl_c: torch.Tensor, *, cap: int):
         EXPAND.launch(ptr(ends), ptr(lane_lo), ptr(flat_s), b * a, cap, a,
                       ptr(slots), ptr(rows))
     return slots, rows, row_offsets, ends[-1].clamp(max=cap), trunc
+
+
+def ring_hop_plain(x: torch.Tensor, axis: int) -> torch.Tensor:
+    """The ring hop's plain version: ``out`` takes along ``axis`` the
+    block of its ring predecessor, a gather at ``(i - 1) mod size``."""
+    size = x.shape[axis]
+    src = (torch.arange(size, device=x.device) - 1) % size
+    return x.index_select(axis, src)
+
+
+def ring_hop(x: torch.Tensor, axis: int) -> torch.Tensor:
+    """The ring hop kernel's wrapper (replaces ``pallas_right_permute`` of
+    ``bifromq_tpu/models/kernels.py``).
+
+    ``x`` is ``[R, S, n]`` int32, one block per mesh slot; ``axis`` 0
+    hops along the replica ring, 1 along the shard ring:
+    ``out[r, s] = x[r, (s - 1) mod S]`` for axis 1, and likewise for 0."""
+    if x.dim() != 3 or axis not in (0, 1):
+        raise ValueError(f"ring_hop takes an [R, S, n] grid and axis 0 or "
+                         f"1, got shape {tuple(x.shape)} and axis {axis}")
+    if x.device.type == "cpu":
+        return ring_hop_plain(x, axis)
+    r, s, n = x.shape
+    check_cuda("x", x, torch.int32)
+    out = torch.empty_like(x)
+    if x.numel():
+        RING_HOP.launch(ptr(x), ptr(out), r, s, n, axis)
+    return out

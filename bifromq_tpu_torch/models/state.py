@@ -5,11 +5,14 @@
 the port's :class:`~bifromq_tpu_torch.ops.match.DeviceTrie` on
 ``device``, so the port can walk the very tables the reference compiled.
 The layouts are the same column for column.
+
+``sharded_tables_to_device`` uploads the stacked per-shard tables of a
+``parallel.sharded.ShardedTables`` for the mesh walk.
 """
 
 from __future__ import annotations
 
-from typing import Mapping
+from typing import Mapping, Tuple
 
 import numpy as np
 import torch
@@ -40,3 +43,17 @@ def device_trie_from_numpy(arrays: Mapping[str, np.ndarray],
             out["route_tab"].shape[1] != RT_COLS:
         raise ValueError("count_tab/route_tab: unexpected column count")
     return DeviceTrie(**out)
+
+
+def sharded_tables_to_device(tables, device=None
+                             ) -> Tuple[torch.Tensor, ...]:
+    """``(edge_tab [S, NB, P, 4], child_list [S, E], route_tab [S, N,
+    RT_COLS])`` of a ``ShardedTables`` on ``device`` (``None`` means the
+    card). One copy serves every replica row of the mesh: the reference
+    replicates the stacks over the replica axis only because each chip
+    needs its own. ``node_tab`` is not uploaded: the walk reads
+    ``route_tab`` in its place."""
+    dev = resolve_device(device)
+    return tuple(torch.from_numpy(np.ascontiguousarray(a)).to(dev)
+                 for a in (tables.edge_tab, tables.child_list,
+                           tables.route_tab))

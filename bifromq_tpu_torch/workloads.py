@@ -1,8 +1,10 @@
-"""Workload generators (copy of the config-2 parts of
+"""Workload generators (copy of the config-2 and config-5 parts of
 ``bifromq_tpu/workloads.py``).
 
 - ``config_wildcard``: BASELINE config 2, one tenant with wildcard-heavy
   Zipf subscriptions (1M by default).
+- ``config_multi_tenant``: BASELINE config 5, 10K tenants with Zipf
+  sizes summing to 10M subscriptions, for the tenant-sharded mesh.
 - ``probe_topics``: concrete PUBLISH topics drawn from the same Zipf tree.
 - ``diverse_topics``: topic strings with realistic shapes (deep paths,
   multi-byte UTF-8, empty levels, ``$SYS`` roots).
@@ -77,6 +79,31 @@ def config_wildcard(n_subs: int = 1_000_000, *, seed: int = 0,
         trie.add(Route(matcher=_mk_matcher(levels), broker_id=broker,
                        receiver_id=f"r{i}", deliverer_key=deliverer_key(i)))
     return {"tenant0": trie}
+
+
+def config_multi_tenant(n_tenants: int = 10_000, total_subs: int = 10_000_000,
+                        *, seed: int = 0,
+                        deliverer_key=lambda t, i: f"d{i % 64}"
+                        ) -> Dict[str, SubscriptionTrie]:
+    """Config 5: tenant-sharded: Zipf tenant sizes summing to total_subs.
+
+    ``deliverer_key(t, i)`` names the delivery target of tenant ``t``'s
+    subscription ``i``; the default is the reference's ``d{i % 64}``."""
+    rng = random.Random(seed)
+    names, weights = _zipf_levels(1000)
+    tenant_weights = [1.0 / (i + 1) for i in range(n_tenants)]
+    wsum = sum(tenant_weights)
+    out: Dict[str, SubscriptionTrie] = {}
+    for t in range(n_tenants):
+        n = max(1, int(total_subs * tenant_weights[t] / wsum))
+        trie = SubscriptionTrie()
+        for i in range(n):
+            levels = gen_filter_levels(rng, names, weights)
+            trie.add(Route(matcher=_mk_matcher(levels), broker_id=0,
+                           receiver_id=f"t{t}r{i}",
+                           deliverer_key=deliverer_key(t, i)))
+        out[f"tenant{t}"] = trie
+    return out
 
 
 def probe_topics(n: int, *, seed: int = 1, n_level_names: int = 1000,

@@ -1,10 +1,10 @@
 #!/usr/bin/env python3
-"""Drive bifromq_tpu_torch's publish -> match -> fan-out path on one CUDA card.
+"""Drive bifromq_tpu_torch's serving paths on one CUDA card.
 
 Usage: ``python3 chip_smoke.py`` from the repository root, on a machine
 with an NVIDIA H100 and the CUDA toolkit. The script
 
-1. builds the three CUDA kernels from ``bifromq_tpu_torch/csrc`` (one
+1. builds the four CUDA kernels from ``bifromq_tpu_torch/csrc`` (one
    ``nvcc`` per source, started together) into ``build/kernels/``;
 2. compiles BASELINE config 2 (one tenant, 1M Zipf wildcard
    subscriptions, ``workloads.config_wildcard(1_000_000, seed=0)``) and
@@ -19,7 +19,22 @@ with an NVIDIA H100 and the CUDA toolkit. The script
    batch against the host oracle; then times one more batch stage by
    stage (prepare, dispatch, fetch, host expansion);
 5. serves a 100K-subscription tenant whose deliverer keys name 8 servers
-   and checks the device's per-peer buckets against the host bucketing.
+   and checks the device's per-peer buckets against the host bucketing;
+6. holds the mesh ring-hop kernel against its plain version for both
+   mesh axes at the mesh path's shape ``[2, 4, n_peers + 2]`` (n_peers 0
+   and 8) and at ``[2, 4, 1 << 20]``, timing kernel, plain version and
+   ``torch.roll``;
+7. compiles BASELINE config 5 (``config_multi_tenant``: 10K Zipf-sized
+   tenants, cut from 10M to 2M subscriptions) onto a ``make_mesh(2, 4)``
+   grid and serves 3 ``match_batch`` calls of 4096 config-5 queries
+   through ``TorchMeshMatcher`` — the mesh path — with the launch counts
+   reset just before and read just after; checks 256 rows of each batch
+   against the host oracle, every block's peer buckets against the host
+   bucketing and the ring-merged per-peer totals; then times one more
+   batch stage by stage;
+8. serves one checked mesh batch over a 100K-subscription config-5
+   population whose deliverer keys name 8 servers, so the blocks bucket
+   into 8 peers and the ring merges ``[2, 4, 10]`` count vectors.
 
 It prints the card's name and power limit, one ``{"kernels": [...]}``
 line and, last, ``{"ok": true, "device": {...}}``. Any failure exits
@@ -42,6 +57,12 @@ N_SUBS = 1_000_000       # BASELINE config 2
 N_PEER_SUBS = 100_000
 N_SERVE_BATCHES = 3
 ORACLE_SAMPLE = 256
+MESH = (2, 4)            # (replicas, shards), as the reference's tests
+MESH_TENANTS = 10_000    # BASELINE config 5
+MESH_SUBS = 2_000_000    # config 5 has 10M; cut to 2M (PERF.md section 4)
+MESH_PEER_TENANTS = 1_000   # config 5's shape, keys naming 8 servers
+MESH_PEER_SUBS = 100_000
+RING_N = (2, 10, 1 << 20)  # n_peers + 2 for n_peers 0 and 8; bandwidth
 # H100 SXM published peaks (NVIDIA H100 datasheet): HBM bytes/s, and
 # the 67 TFLOP/s float32 non-tensor rate, used for 32-bit integer ops
 HBM_BPS = 3.35e12
@@ -94,6 +115,220 @@ def canon(m):
                    for r in m.normal),
             {f: sorted(r.receiver_url for r in ms)
              for f, ms in m.groups.items()})
+
+
+def sync(torch, dev) -> None:
+    if dev.type == "cuda":
+        torch.cuda.synchronize()
+
+
+def ring_phase(torch, K, dev):
+    """K4: ``ring_hop`` against ``ring_hop_plain`` for both mesh axes at
+    every ``RING_N`` width, each timed beside its plain version and
+    ``torch.roll``. Returns the kernels-line row (the mesh path's shape,
+    ``[2, 4, 2]``, shard axis) and the max error over every case."""
+    gen = torch.Generator(device=dev).manual_seed(0)
+    err, row = 0, None
+    for n in RING_N:
+        x = torch.randint(-(1 << 30), 1 << 30, (*MESH, n), dtype=torch.int32,
+                          device=dev, generator=gen)
+        iters = 20 if n > 4096 else 200
+        for axis in (0, 1):
+            got = K.ring_hop(x, axis)
+            want = K.ring_hop_plain(x, axis)
+            torch.cuda.synchronize()
+            e = max_abs_err(torch, [got], [want])
+            err = max(err, e)
+            r = dict(
+                bytes=2 * x.numel() * 4, ops=0,
+                ms=time_ms(torch, lambda: K.ring_hop(x, axis), iters),
+                plain_ms=time_ms(torch, lambda: K.ring_hop_plain(x, axis),
+                                 iters),
+                library_ms=time_ms(torch, lambda: torch.roll(x, 1, dims=axis),
+                                   iters))
+            print(json.dumps({"phase": "K4", "shape": list(x.shape),
+                              "axis": axis, "max_abs_err": e,
+                              "ms": r["ms"], "plain_ms": r["plain_ms"],
+                              "roll_ms": r["library_ms"],
+                              "bound_ms": r["bytes"] / HBM_BPS * 1e3}),
+                  flush=True)
+            if n == RING_N[0] and axis == 1:
+                row = r
+    if err:
+        raise AssertionError(f"K4 ring_hop differs from ring_hop_plain: {err}")
+    return row, err
+
+
+def check_mesh_batch(M, mm, queries, res, pairs, peer_tab) -> None:
+    """One served mesh batch against the host: sampled rows against the
+    oracle, every block's buckets against the host bucketing, and the
+    ring-merged totals against the blocks' own bucket counts."""
+    import numpy as np
+    step = max(1, len(queries) // ORACLE_SAMPLE)
+    sample = list(range(0, len(queries), step))
+    oracle = mm.match_from_tries([queries[i] for i in sample])
+    bad = [i for i, o in zip(sample, oracle) if canon(res[i]) != canon(o)]
+    if bad:
+        raise AssertionError(f"mesh rows {bad[:8]} differ from the oracle")
+    r, s = pairs.slots.shape[:2]
+    for rep in range(r):
+        for sh in range(s):
+            hs, hr, ho = M.bucket_pairs_host(
+                pairs.slots[rep, sh], pairs.rows[rep, sh],
+                peer_tab.tables[sh].slot_peer, peer_tab.n_peers)
+            if not (np.array_equal(hs, pairs.peer_slots[rep, sh])
+                    and np.array_equal(hr, pairs.peer_rows[rep, sh])
+                    and np.array_equal(ho, pairs.peer_offsets[rep, sh])):
+                raise AssertionError(f"block ({rep}, {sh}) buckets differ "
+                                     f"from bucket_pairs_host")
+    totals = pairs.res.peer_totals.cpu().numpy()
+    want = np.diff(pairs.peer_offsets, axis=-1).sum(axis=(0, 1))
+    if not (totals == want).all():
+        raise AssertionError(f"ring totals {totals.tolist()} != the "
+                             f"blocks' bucket sums {want.tolist()}")
+    if int(totals[0, 0, :-1].sum()) != int(pairs.n_pairs.sum()):
+        raise AssertionError("ring totals do not count the live pairs")
+
+
+def config5_traffic(tries, batch: int, n_batches: int):
+    """bench.py's config-5 traffic: probe topics (seed 1), each for a
+    tenant drawn Zipf by the rank of its sorted name (seed 3)."""
+    import random
+    from bifromq_tpu_torch import workloads
+    n_q = batch * n_batches
+    topics = ["/".join(t) for t in workloads.probe_topics(n_q, seed=1)]
+    tenants = sorted(tries)
+    cum, acc = [], 0.0
+    for i in range(len(tenants)):
+        acc += 1.0 / (i + 1)
+        cum.append(acc)
+    seq = random.Random(3).choices(tenants, cum_weights=cum, k=n_q)
+    return [list(zip(seq[i * batch:(i + 1) * batch],
+                     topics[i * batch:(i + 1) * batch]))
+            for i in range(n_batches)]
+
+
+def serve_mesh_batch(torch, dev, mm, queries):
+    """One checked ``match_batch`` on the mesh: exactly R·S walk and
+    expansion launches and (R-1)+(S-1) ring hops, then
+    :func:`check_mesh_batch`. Returns the batch's summary."""
+    from bifromq_tpu_torch.ops import match as M
+    from bifromq_tpu_torch.utils import device as D
+    r, s = mm.n_replicas, mm.n_shards
+    want = {k: 0 for k in D.KERNELS}
+    want.update(fused_walk=r * s, expand_pairs=r * s,
+                ring_hop=(r - 1) + (s - 1))
+    before = {k: v.launches for k, v in D.KERNELS.items()}
+    sync(torch, dev)
+    t0 = time.perf_counter()
+    res = mm.match_batch(queries)
+    sync(torch, dev)
+    ms = (time.perf_counter() - t0) * 1e3
+    launched = {k: v.launches - before[k] for k, v in D.KERNELS.items()}
+    if launched != want:
+        raise AssertionError(f"mesh batch launched {launched}, expected "
+                             f"{want}")
+    pairs, peer_tab = mm.last_expanded
+    check_mesh_batch(M, mm, queries, res, pairs, peer_tab)
+    return {"batch_ms": ms,
+            "routes_per_topic": sum(len(x.all_routes()) for x in res)
+            / len(queries),
+            "block_rows": int(pairs.trunc.shape[-1]),
+            "pairs": int(pairs.n_pairs.sum()),
+            "walk_overflow_rows": int(pairs.res.overflow.sum()),
+            "trunc_rows": int(pairs.trunc.sum()),
+            "n_peers": peer_tab.n_peers,
+            "peer_totals": pairs.res.peer_totals[0, 0].tolist(),
+            "oracle_rows_checked": min(len(queries), ORACLE_SAMPLE),
+            "launches": launched}
+
+
+def mesh_phase(torch, dev, smi, n_tenants=MESH_TENANTS, total_subs=MESH_SUBS,
+               batch=B_SERVE):
+    """The mesh path: config 5 on ``make_mesh(*MESH)``, 3 counted
+    checked ``match_batch`` calls, then one batch timed stage by stage.
+    Returns the launch counts of the counted run."""
+    from bifromq_tpu_torch import workloads
+    from bifromq_tpu_torch.models.oracle import UNCAPPED_FANOUT
+    from bifromq_tpu_torch.ops import match as M
+    from bifromq_tpu_torch.parallel.sharded import (TorchMeshMatcher,
+                                                    make_mesh)
+    from bifromq_tpu_torch.utils import device as D
+
+    t0 = time.perf_counter()
+    tries = workloads.config_multi_tenant(n_tenants, total_subs, seed=0)
+    gen_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    mm = TorchMeshMatcher.from_tries(tries, mesh=make_mesh(*MESH, device=dev))
+    tables = mm.compiled
+    sync(torch, dev)
+    compile_s = time.perf_counter() - t0
+    home = [0] * mm.n_shards
+    for t in tries:
+        home[tables.shard_of(t)] += 1
+    shards = [{"tenants": home[sh], "nodes": int(ct.n_nodes),
+               "slots": int(ct.n_slots),
+               "table_bytes": int(tables.edge_tab[sh].nbytes
+                                  + tables.route_tab[sh].nbytes
+                                  + tables.child_list[sh].nbytes),
+               "unpadded_bytes": int(ct.edge_tab.nbytes + ct.child_list.nbytes
+                                     + ct.n_nodes * M.RT_COLS * 4)}
+              for sh, ct in enumerate(tables.compiled)]
+    print(json.dumps({"phase": "mesh-compile", "tenants": n_tenants,
+                      "subs": total_subs, "mesh": list(MESH),
+                      "edge_buckets": int(tables.edge_tab.shape[1]),
+                      "generate_s": gen_s, "compile_s": compile_s,
+                      "shards": shards}), flush=True)
+
+    batches = config5_traffic(tries, batch, N_SERVE_BATCHES + 1)
+    D.reset_launches()
+    served = [serve_mesh_batch(torch, dev, mm, q)
+              for q in batches[:N_SERVE_BATCHES]]
+    launches = {k: v.launches for k, v in D.KERNELS.items()}
+    print(json.dumps({"phase": "mesh-serve", "batch": batch, "card": smi,
+                      "batches": served, "launches": launches}), flush=True)
+
+    stages = {}
+
+    def staged(name, fn, *args):
+        sync(torch, dev)
+        t0 = time.perf_counter()
+        out = fn(*args)
+        sync(torch, dev)
+        stages[name] = (time.perf_counter() - t0) * 1e3
+        return out
+
+    fl = staged("dispatch_ms", mm._dispatch_prepared,
+                staged("prepare_ms", mm._prepare_probes, batches[-1]))
+    overflow, pairs = staged("fetch_ms", mm._fetch_walk, fl.res)
+    staged("expand_walk_ms", mm._expand_walk, fl, overflow, pairs,
+           UNCAPPED_FANOUT, UNCAPPED_FANOUT)
+    print(json.dumps({"phase": "mesh-stages", "batch": batch, "card": smi,
+                      **stages}), flush=True)
+    return launches
+
+
+def mesh_peer_phase(torch, dev, n_tenants=MESH_PEER_TENANTS,
+                    total_subs=MESH_PEER_SUBS, batch=B_SERVE) -> None:
+    """The mesh path with deliverer keys naming 8 servers, so every block
+    buckets its pairs into 8 peers and the ring merges [2, 4, 10] count
+    vectors: one checked batch of config-5 traffic."""
+    from bifromq_tpu_torch import workloads
+    from bifromq_tpu_torch.parallel.sharded import (TorchMeshMatcher,
+                                                    make_mesh)
+    t0 = time.perf_counter()
+    tries = workloads.config_multi_tenant(
+        n_tenants, total_subs, seed=0,
+        deliverer_key=lambda t, i: f"srv{(t + i) % 8}|t{t}d{i}")
+    mm = TorchMeshMatcher.from_tries(tries, mesh=make_mesh(*MESH, device=dev))
+    out = serve_mesh_batch(torch, dev, mm,
+                           config5_traffic(tries, batch, 1)[0])
+    if out["n_peers"] != 8:
+        raise AssertionError(f"mesh peer table has {out['n_peers']} "
+                             f"peers, expected 8")
+    print(json.dumps({"phase": "mesh-peers", "tenants": n_tenants,
+                      "subs": total_subs, **out,
+                      "seconds": time.perf_counter() - t0}), flush=True)
 
 
 def main() -> int:
@@ -280,7 +515,8 @@ def main() -> int:
     print(json.dumps({"phase": "serve", "subs": N_SUBS, "batch": B_SERVE,
                       "card": smi, "batches": serve,
                       "launches": launches}), flush=True)
-    missing = [k for k, v in launches.items() if not v]
+    missing = [k for k in ("blake2b_levels", "fused_walk", "expand_pairs")
+               if not launches[k]]
     if missing:
         return fail(f"the main path did not launch {missing}")
 
@@ -336,7 +572,12 @@ def main() -> int:
                       "launches": peer_launches,
                       "seconds": time.perf_counter() - t0}), flush=True)
 
+    rows["ring_hop"], k4_err = ring_phase(torch, K, dev)
+    mesh_launches = mesh_phase(torch, dev, smi)
+    mesh_peer_phase(torch, dev)
+
     # ---- the kernels line -------------------------------------------------
+    launches["ring_hop"] = mesh_launches["ring_hop"]
     meta = {
         "blake2b_levels": ("blake2b_levels.cu",
                            "bifromq_tpu/ops/tokenize.py:205", k1_err),
@@ -344,6 +585,8 @@ def main() -> int:
                        "bifromq_tpu/models/kernels.py:153", k2_err),
         "expand_pairs": ("expand.cu",
                          "bifromq_tpu/models/kernels.py:246", k3_err),
+        "ring_hop": ("ring_hop.cu",
+                     "bifromq_tpu/models/kernels.py:325", k4_err),
     }
     out = []
     for name, (src, replaces, err) in meta.items():

@@ -144,6 +144,13 @@ res = m.match_batch([("tenant0", t) for t in topics])
 oracle = m.match_from_tries([("tenant0", t) for t in topics])
 assert [len(r.all_routes()) for r in res] == \
     [len(r.all_routes()) for r in oracle]
+from bifromq_tpu_torch.parallel import sharded
+mm = sharded.TorchMeshMatcher.from_tries(
+    workloads.config_multi_tenant(40, 400, seed=0),
+    mesh=sharded.make_mesh(2, 4, device="cpu"))
+mq = [(f"tenant{i % 40}", t) for i, t in enumerate(topics)]
+assert [len(r.all_routes()) for r in mm.match_batch(mq)] == \
+    [len(r.all_routes()) for r in mm.match_from_tries(mq)]
 assert "jax" not in sys.modules, "jax imported"
 bad = [k for k in sys.modules
        if k == "bifromq_tpu" or k.startswith("bifromq_tpu.")]
