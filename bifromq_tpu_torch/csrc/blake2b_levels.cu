@@ -140,3 +140,7 @@ extern "C" int blake2b_levels(const void* rows, const void* starts,
       b, mb, w);
   return (int)cudaGetLastError();
 }
+
+#include "py_launch.cuh"
+
+PY_LAUNCH_MODULE(blake2b_levels, blake2b_levels)

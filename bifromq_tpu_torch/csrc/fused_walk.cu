@@ -263,3 +263,7 @@ extern "C" int fused_walk(const void* edge, const void* route, int nb, int p,
 #undef FUSED_WALK_LAUNCH
   return (int)cudaGetLastError();
 }
+
+#include "py_launch.cuh"
+
+PY_LAUNCH_MODULE(fused_walk, fused_walk)

@@ -72,3 +72,7 @@ extern "C" int ring_hop(const void* src, void* dst, int r, int s, int n,
   }
   return launch<int32_t>(src, dst, r, s, n, axis, (cudaStream_t)stream);
 }
+
+#include "py_launch.cuh"
+
+PY_LAUNCH_MODULE(ring_hop, ring_hop)

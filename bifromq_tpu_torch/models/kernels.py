@@ -6,10 +6,13 @@
   interval emission and the final keep-order pack — in one launch, one
   warp per topic row. Row-identical to ``ops.match.walk_routes(esc_k=0)``.
 - :func:`kernel_expand` launches ``csrc/expand.cu``: the ragged-arange
-  expansion of the [B, A] interval grids into dense (slot, row) pairs,
-  one thread per output position. The O(B·A) prefix sums stay plain
-  PyTorch outside the kernel, as in the reference. Identical to
-  ``ops.match._expand_pairs``.
+  expansion of [B, A] interval grids — or of G such blocks at once,
+  ``[G, B, A]`` — into dense (slot, row) pairs. One C entry launches two
+  device kernels for all G blocks: a single-pass prefix scan with
+  decoupled look-back, then a merge-path (load-balanced) expansion. The
+  prefix sums run on the card too, where the reference keeps them in lax
+  outside its kernel. Identical to ``ops.match._expand_pairs`` block by
+  block.
 - :func:`ring_hop` launches ``csrc/ring_hop.cu``: one right-rotate hop
   of the mesh ring along one axis of an ``[R, S, n]`` block grid, one
   thread per output element. Identical to :func:`ring_hop_plain`.
@@ -21,31 +24,25 @@ is no counterpart of the reference's VMEM fit gate.
 
 from __future__ import annotations
 
-import ctypes
+from typing import Dict, Tuple
 
 import torch
 
 from ..ops.match import (DeviceTrie, Probes, RouteIntervals, RT_COLS,
-                         _expand_pairs, _expand_prefix, walk_routes)
-from ..utils.device import CudaKernel, check_cuda, ptr
+                         _expand_pairs, walk_routes)
+from ..utils.device import CudaKernel, check_cuda, ptr, stream_of
 
 # (K, A) pairs the walk kernel is instantiated for (csrc/fused_walk.cu)
 WALK_SHAPES = ((32, 32), (32, 128), (128, 32), (128, 128))
 
-FUSED_WALK = CudaKernel(
-    "fused_walk.cu", "fused_walk",
-    [ctypes.c_void_p] * 2 + [ctypes.c_int] * 3 + [ctypes.c_void_p] * 5
-    + [ctypes.c_int] * 2 + [ctypes.c_void_p] * 4 + [ctypes.c_int]
-    + [ctypes.c_void_p])
+FUSED_WALK = CudaKernel("fused_walk.cu", "fused_walk")
+EXPAND = CudaKernel("expand.cu", "expand_pairs")
+# csrc/expand.cu's tile widths: lanes per scan tile, merge steps per
+# expansion tile
+EXPAND_SCAN_TILE = 2048
+EXPAND_MERGE_TILE = 1792
 
-EXPAND = CudaKernel(
-    "expand.cu", "expand_pairs",
-    [ctypes.c_void_p] * 3 + [ctypes.c_int] * 3 + [ctypes.c_void_p] * 2
-    + [ctypes.c_void_p])
-
-RING_HOP = CudaKernel(
-    "ring_hop.cu", "ring_hop",
-    [ctypes.c_void_p] * 2 + [ctypes.c_int] * 4 + [ctypes.c_void_p])
+RING_HOP = CudaKernel("ring_hop.cu", "ring_hop")
 
 
 def fused_walk_routes(trie: DeviceTrie, probes: Probes, *, probe_len: int,
@@ -57,7 +54,7 @@ def fused_walk_routes(trie: DeviceTrie, probes: Probes, *, probe_len: int,
     Drop-in for ``walk_routes(..., esc_k=0)``: no on-device escalation —
     the matcher re-walks overflow rows through this same entry at a
     higher budget."""
-    if probes.tok_h1.device.type == "cpu":
+    if probes.tok_h1.is_cpu:
         return walk_routes(trie, probes, probe_len=probe_len,
                            k_states=k_states, max_intervals=max_intervals,
                            esc_k=0)
@@ -83,13 +80,43 @@ def fused_walk_routes(trie: DeviceTrie, probes: Probes, *, probe_len: int,
     overflow = torch.empty(b, dtype=torch.bool, device=dev)
     if b:
         FUSED_WALK.launch(
-            ptr(trie.edge_tab), ptr(trie.route_tab), nb, probe_len, w,
-            ptr(probes.tok_h1), ptr(probes.tok_h2), ptr(probes.lengths),
-            ptr(probes.roots), ptr(probes.sys_mask), b, k_states,
+            stream_of(probes.tok_h1), ptr(trie.edge_tab),
+            ptr(trie.route_tab), nb, probe_len, w, ptr(probes.tok_h1),
+            ptr(probes.tok_h2), ptr(probes.lengths), ptr(probes.roots),
+            ptr(probes.sys_mask), b, k_states,
             ptr(ivl_s), ptr(ivl_c), ptr(n_routes), ptr(overflow),
             max_intervals)
     return RouteIntervals(start=ivl_s, count=ivl_c, n_routes=n_routes,
                           overflow=overflow)
+
+
+# (card, stream) -> (status, words): the expansion's scratch, kept per
+# stream because a call's look-back reads the status words its own scan
+# tiles publish; every call leaves the status words and the tile counter
+# (words[0]) at 0, which is how they were allocated
+_EXPAND_SCRATCH: Dict[Tuple[int, int], Tuple[torch.Tensor, torch.Tensor]] = {}
+
+
+def _expand_scratch(x: torch.Tensor, stream: int, n_tiles: int,
+                    n_words: int) -> Tuple[torch.Tensor, torch.Tensor]:
+    key = (x.get_device(), stream)
+    have = _EXPAND_SCRATCH.get(key)
+    if (have is None or have[0].numel() < n_tiles
+            or have[1].numel() < n_words):
+        n_tiles = max(n_tiles, have[0].numel() if have else 0)
+        n_words = max(n_words, have[1].numel() if have else 0)
+        have = (torch.zeros(n_tiles, dtype=torch.int64, device=x.device),
+                torch.zeros(n_words, dtype=torch.int32, device=x.device))
+        _EXPAND_SCRATCH[key] = have
+    return have
+
+
+def _expand_blocks_plain(ivl_s: torch.Tensor, ivl_c: torch.Tensor,
+                         cap: int):
+    """:func:`_expand_pairs` block by block over a leading G axis, the
+    five results stacked."""
+    outs = [_expand_pairs(s, c, cap) for s, c in zip(ivl_s, ivl_c)]
+    return tuple(torch.stack(x) for x in zip(*outs))
 
 
 def kernel_expand(ivl_s: torch.Tensor, ivl_c: torch.Tensor, *, cap: int):
@@ -98,20 +125,41 @@ def kernel_expand(ivl_s: torch.Tensor, ivl_c: torch.Tensor, *, cap: int):
 
     Same output contract as ``ops.match._expand_pairs``: (slots [cap],
     rows [cap], row_offsets [B+1], n_pairs [], trunc [B]) in the host
-    expander's row-major order."""
-    if ivl_s.device.type == "cpu":
+    expander's row-major order. ``ivl_s``/``ivl_c`` of shape [G, B, A]
+    expand G blocks in one call, each into its own ``cap``-pair buffer,
+    and every result gains a leading [G]."""
+    if ivl_s.dim() not in (2, 3) or ivl_c.dim() != ivl_s.dim():
+        raise ValueError(f"kernel_expand takes [B, A] or [G, B, A] grids, "
+                         f"got {tuple(ivl_s.shape)} and "
+                         f"{tuple(ivl_c.shape)}")
+    batched = ivl_s.dim() == 3
+    if ivl_s.is_cpu:
+        if batched:
+            return _expand_blocks_plain(ivl_s, ivl_c, cap)
         return _expand_pairs(ivl_s, ivl_c, cap)
-    b, a = ivl_s.shape
-    check_cuda("ivl_s", ivl_s, torch.int32, (b, a))
-    check_cuda("ivl_c", ivl_c, torch.int32, (b, a))
-    flat_s, ends, lane_lo, row_offsets, trunc = _expand_prefix(
-        ivl_s, ivl_c, cap)
-    slots = torch.empty(cap, dtype=torch.int32, device=ivl_s.device)
-    rows = torch.empty(cap, dtype=torch.int32, device=ivl_s.device)
-    if cap:
-        EXPAND.launch(ptr(ends), ptr(lane_lo), ptr(flat_s), b * a, cap, a,
-                      ptr(slots), ptr(rows))
-    return slots, rows, row_offsets, ends[-1].clamp(max=cap), trunc
+    g, b, a = ivl_s.shape if batched else (1, *ivl_s.shape)
+    n = b * a
+    if g < 1 or n < 1 or cap < 0 or n + cap >= (1 << 31) - EXPAND_MERGE_TILE:
+        raise ValueError(f"kernel_expand: no kernel instance for G={g}, "
+                         f"B*A={n}, cap={cap}")
+    check_cuda("ivl_s", ivl_s, torch.int32, ivl_s.shape)
+    check_cuda("ivl_c", ivl_c, torch.int32, ivl_s.shape)
+    stream = stream_of(ivl_s)
+    live_words = -(-g // 4) * 4
+    status, words = _expand_scratch(
+        ivl_s, stream, g * -(-n // EXPAND_SCAN_TILE), 4 + live_words + g * n)
+    lead = (g,) if batched else ()
+    dev = ivl_s.device
+    slots = torch.empty((*lead, cap), dtype=torch.int32, device=dev)
+    rows = torch.empty((*lead, cap), dtype=torch.int32, device=dev)
+    row_offsets = torch.empty((*lead, b + 1), dtype=torch.int32, device=dev)
+    n_pairs = torch.empty(lead, dtype=torch.int32, device=dev)
+    trunc = torch.empty((*lead, b), dtype=torch.bool, device=dev)
+    w = words.data_ptr()
+    EXPAND.launch(stream, ptr(ivl_s), ptr(ivl_c), g, b, a, cap, ptr(slots),
+                  ptr(rows), ptr(row_offsets), ptr(n_pairs), ptr(trunc),
+                  ptr(status), w, w + 4 * (4 + live_words), w + 16)
+    return slots, rows, row_offsets, n_pairs, trunc
 
 
 def ring_hop_plain(x: torch.Tensor, axis: int) -> torch.Tensor:
@@ -132,11 +180,11 @@ def ring_hop(x: torch.Tensor, axis: int) -> torch.Tensor:
     if x.dim() != 3 or axis not in (0, 1):
         raise ValueError(f"ring_hop takes an [R, S, n] grid and axis 0 or "
                          f"1, got shape {tuple(x.shape)} and axis {axis}")
-    if x.device.type == "cpu":
+    if x.is_cpu:
         return ring_hop_plain(x, axis)
-    r, s, n = x.shape
     check_cuda("x", x, torch.int32)
     out = torch.empty_like(x)
-    if x.numel():
-        RING_HOP.launch(ptr(x), ptr(out), r, s, n, axis)
+    r, s, n = x.shape
+    if n and r and s:
+        RING_HOP.launch(stream_of(x), ptr(x), ptr(out), r, s, n, axis)
     return out

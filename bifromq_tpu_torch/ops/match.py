@@ -497,6 +497,16 @@ def _bucket_pairs(slots: torch.Tensor, rows: torch.Tensor,
     return peer_slots, peer_rows, starts
 
 
+def _unbucketed_offsets(n_pairs: torch.Tensor, cap: int) -> torch.Tensor:
+    """``peer_offsets`` where no delivery peer is known (n_peers == 0):
+    every live pair sits in UNKNOWN as a contiguous prefix and the pad
+    pairs trail, so the offsets are ``[0, n_pairs, cap]`` (``[..., 3]``
+    over any leading block axes of ``n_pairs``)."""
+    n_pairs = n_pairs.to(torch.int32)
+    return torch.stack([torch.zeros_like(n_pairs), n_pairs,
+                        torch.full_like(n_pairs, cap)], dim=-1)
+
+
 def expand_routes(ivl: RouteIntervals, slot_peer: torch.Tensor, *,
                   cap: int, n_peers: int) -> ExpandedRoutes:
     """The serving expansion stage: walk intervals -> peer-bucketed pairs.
@@ -511,15 +521,10 @@ def expand_routes(ivl: RouteIntervals, slot_peer: torch.Tensor, *,
     slots, rows, row_offsets, n_pairs, trunc = kernel_expand(
         ivl.start, serve_c, cap=cap)
     if n_peers == 0:
-        # structurally bucketed already: every live pair lands in UNKNOWN
-        # and the expansion emits live pairs as a contiguous prefix with
-        # the pad lanes trailing, so the stable sort is the identity —
-        # the peer views alias the pair buffers, no copy
+        # structurally bucketed already: the stable sort is the identity,
+        # so the peer views alias the pair buffers, no copy
         peer_slots, peer_rows = slots, rows
-        peer_offsets = torch.stack(
-            [torch.zeros((), dtype=torch.int32, device=slots.device),
-             n_pairs.to(torch.int32),
-             torch.full((), cap, dtype=torch.int32, device=slots.device)])
+        peer_offsets = _unbucketed_offsets(n_pairs, cap)
     else:
         peer_slots, peer_rows, peer_offsets = _bucket_pairs(
             slots, rows, slot_peer, n_peers)

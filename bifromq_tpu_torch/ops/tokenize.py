@@ -20,7 +20,6 @@ on CPU tensors.
 
 from __future__ import annotations
 
-import ctypes
 from typing import Sequence, Tuple
 
 import numpy as np
@@ -28,16 +27,14 @@ import torch
 
 from ..models import bytetok
 from ..models.automaton import TokenizedTopics
-from ..utils.device import CudaKernel, check_cuda, ptr
+from ..utils.device import CudaKernel, check_cuda, ptr, stream_of
 from ..utils.env import env_int
 
 _EMPTY = -1
 _LEVEL_BLOCK = bytetok.MAX_SINGLE_BLOCK_LEVEL   # 128: one BLAKE2b block
 _M32 = 0xFFFFFFFF
 
-BLAKE2B = CudaKernel(
-    "blake2b_levels.cu", "blake2b_levels",
-    [ctypes.c_void_p] * 7 + [ctypes.c_int] * 3 + [ctypes.c_void_p])
+BLAKE2B = CudaKernel("blake2b_levels.cu", "blake2b_levels")
 
 
 def tok_max_bytes() -> int:
@@ -151,8 +148,8 @@ def blake2b_levels(rows, starts, lens, nlv, h0):
     h1 = torch.empty((b, w), dtype=torch.int32, device=rows.device)
     h2 = torch.empty((b, w), dtype=torch.int32, device=rows.device)
     if b * w:
-        BLAKE2B.launch(ptr(rows), ptr(starts), ptr(lens), ptr(nlv), ptr(h0),
-                       ptr(h1), ptr(h2), b, mb, w)
+        BLAKE2B.launch(stream_of(rows), ptr(rows), ptr(starts), ptr(lens),
+                       ptr(nlv), ptr(h0), ptr(h1), ptr(h2), b, mb, w)
     return h1, h2
 
 

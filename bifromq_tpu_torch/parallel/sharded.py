@@ -8,21 +8,23 @@ grid is a leading ``[R, S]`` block axis of every tensor:
 
 - the stacked shard tables ``[S, ...]`` are uploaded once and shared by
   every replica row;
-- the walk (``csrc/fused_walk.cu``) and the expansion
-  (``csrc/expand.cu``) run once per (replica, shard) block, on that
-  shard's table views;
+- the walk (``csrc/fused_walk.cu``) runs once per (replica, shard)
+  block, on that shard's table views;
+- the expansion (``csrc/expand.cu``) runs once for all R·S blocks, each
+  into its own pair buffer;
 - the per-peer delivery counts of all blocks merge by a ring of
   right-rotate hops (``csrc/ring_hop.cu``), shard ring first, then
   replica ring, as the reference's ``_ring_allreduce`` does between
   chips.
 
 Serving is ``TorchMeshMatcher.match_batch``: shard-route → host tokenize
-per shard → walk per block → expansion and per-peer bucketing per block
-→ ring merge → fetch → ``MatchedRoutes``. Mutations take the overlay +
-compaction path of :class:`~bifromq_tpu_torch.models.matcher.TorchMatcher`.
-Not ported yet: shard breakers, canaries and split dispatch, the
-per-shard patch plane, pins, rebalance, migration and resize, hot-tenant
-replication, the completion board.
+per shard → walk per block → one expansion call for the whole grid →
+per-peer bucketing per block → ring merge → fetch → ``MatchedRoutes``.
+Mutations take the overlay + compaction path of
+:class:`~bifromq_tpu_torch.models.matcher.TorchMatcher`. Not ported yet:
+shard breakers, canaries and split dispatch, the per-shard patch plane,
+pins, rebalance, migration and resize, hot-tenant replication, the
+completion board.
 """
 
 from __future__ import annotations
@@ -40,7 +42,7 @@ from ..models.matcher import TorchMatcher, _HostPairs, _host, \
     _parse_levels, _pow2_batch
 from ..models.oracle import MatchedRoutes, SubscriptionTrie
 from ..ops.match import RT_COLS, DeviceTrie, Probes, RouteIntervals, \
-    expand_cap_lanes, expand_intervals, expand_routes, \
+    _bucket_pairs, _unbucketed_offsets, expand_cap_lanes, expand_intervals, \
     route_cols_from_node_tab
 from ..utils.device import resolve_device
 
@@ -221,35 +223,39 @@ class _MeshExpanded:
 
 def mesh_expand(ivl: RouteIntervals, slot_peer: torch.Tensor, *, cap: int,
                 n_peers: int) -> _MeshExpanded:
-    """The mesh's second device stage: per block, the expansion kernel
-    (walk-overflow rows zeroed) and the per-peer bucketing against that
-    shard's ``slot_peer`` row; then the per-peer counts merge over the
-    shard ring and then the replica ring."""
-    r, s = ivl.overflow.shape[:2]
-    blocks = [expand_routes(
-        RouteIntervals(ivl.start[rep, sh], ivl.count[rep, sh],
-                       ivl.n_routes[rep, sh], ivl.overflow[rep, sh]),
-        slot_peer[sh], cap=cap, n_peers=n_peers)
-        for rep in range(r) for sh in range(s)]
-    grid = _stacker(blocks, r, s)
-    peer_offsets = grid("peer_offsets")
+    """The mesh's second device stage: one call of the expansion kernel
+    for all R·S blocks (walk-overflow rows zeroed, ``cap`` pairs a
+    block), the per-peer bucketing of each block against its shard's
+    ``slot_peer`` row, then the per-peer counts merged over the shard
+    ring and then the replica ring."""
+    from ..models.kernels import kernel_expand
+    r, s, b, a = ivl.start.shape
+
+    def grid(x):    # [R·S, ...] -> [R, S, ...]
+        return x.reshape(r, s, *x.shape[1:])
+    serve_c = torch.where(ivl.overflow[..., None], 0, ivl.count)
+    expanded = kernel_expand(ivl.start.reshape(r * s, b, a),
+                             serve_c.reshape(r * s, b, a), cap=cap)
+    slots, rows, row_offsets, n_pairs, trunc = (grid(x) for x in expanded)
+    if n_peers == 0:
+        # every pair sits in the pad bucket in (slot, row) order, so the
+        # peer arrays alias slots/rows
+        peer_slots, peer_rows = slots, rows
+        peer_offsets = _unbucketed_offsets(n_pairs, cap)
+    else:
+        blocks = [_bucket_pairs(slots[rep, sh], rows[rep, sh], slot_peer[sh],
+                                n_peers)
+                  for rep in range(r) for sh in range(s)]
+        peer_slots, peer_rows, peer_offsets = (grid(torch.stack(x))
+                                               for x in zip(*blocks))
     counts = peer_offsets[..., 1:] - peer_offsets[..., :-1]
     totals = _ring_allreduce(counts, SHARD_AXIS, s)
     totals = _ring_allreduce(totals, REPLICA_AXIS, r)
-    slots, rows = grid("slots"), grid("rows")
-    if n_peers == 0:
-        # every pair sits in the pad bucket in (slot, row) order, so the
-        # per-block peer arrays alias slots/rows: stack them once
-        peer_slots, peer_rows = slots, rows
-    else:
-        peer_slots, peer_rows = grid("peer_slots"), grid("peer_rows")
     return _MeshExpanded(
         start=ivl.start, count=ivl.count, overflow=ivl.overflow,
-        slots=slots, rows=rows,
-        row_offsets=grid("row_offsets"), n_pairs=grid("n_pairs"),
-        trunc=grid("trunc"), peer_slots=peer_slots,
-        peer_rows=peer_rows, peer_offsets=peer_offsets,
-        peer_totals=totals)
+        slots=slots, rows=rows, row_offsets=row_offsets, n_pairs=n_pairs,
+        trunc=trunc, peer_slots=peer_slots, peer_rows=peer_rows,
+        peer_offsets=peer_offsets, peer_totals=totals)
 
 
 class _MeshPeerTable:
@@ -399,8 +405,8 @@ class TorchMeshMatcher(TorchMatcher):
                              probes=probes, lengths_np=lengths)
 
     def _dispatch_prepared(self, prep: _MeshPrepared) -> _MeshInFlight:
-        """Stage 1: enqueue the walk per block and the expansion per
-        block with the ring merge; returns once all are enqueued."""
+        """Stage 1: enqueue the walk per block, one expansion for the
+        grid and the ring merge; returns once all are enqueued."""
         if self._base_ct is not prep.ct:
             # a compaction swap landed between prep and dispatch: roots
             # and salts are per-snapshot, so re-prep against the new base

@@ -1,21 +1,24 @@
 """Device choice and the hand-written CUDA kernels' build, load and launch.
 
 Every kernel of the port is CUDA C++ for ``sm_90a`` under ``csrc/``,
-compiled at first use by ``nvcc`` into a shared library with a plain C
-interface and loaded with ``ctypes``. The library lands in
-``build/kernels/`` at the repository root, named by a hash of its source
-and flags, so a checkout builds what it needs and a rebuilt source never
-loads a stale library. Nothing here runs at import: the CPU tests import
-every module on a machine with no ``nvcc`` and no card.
+compiled at first use by ``nvcc`` into a shared library: a plain C launch
+entry plus, from ``csrc/py_launch.cuh``, a one-function Python extension
+module that calls it (the interpreter's C API only, no PyTorch headers).
+The library lands in ``build/kernels/`` at the repository root, named by
+a hash of its source, the shared headers and the flags, so a checkout
+builds what it needs and a rebuilt source never loads a stale library.
+Nothing here runs at import: the CPU tests import every module on a
+machine with no ``nvcc`` and no card.
 """
 
 from __future__ import annotations
 
-import ctypes
 import hashlib
+import importlib.util
 import os
 import shutil
 import subprocess
+import sysconfig
 from pathlib import Path
 from typing import Dict, Iterable, List, Optional, Sequence
 
@@ -47,20 +50,28 @@ def _nvcc() -> str:
                        "machine with the CUDA toolkit")
 
 
+def _nvcc_flags() -> List[str]:
+    return [*NVCC_FLAGS, "-I", sysconfig.get_paths()["include"]]
+
+
 class CudaKernel:
     """One ``csrc/*.cu`` source with one C entry point.
 
     The entry takes device pointers, ints and the CUDA stream, launches on
     that stream and returns ``cudaGetLastError()``; :meth:`launch` raises
-    when it is not 0. ``launches`` counts successful launches and nothing
-    else, so a run can show that its main path went through the kernel.
+    when it is not 0. Python reaches it through the source's extension
+    module, named after the source's stem. ``launches`` counts successful
+    launches and nothing else, so a run can show that its main path went
+    through the kernel.
+    The host path of a launch is kept short, since at the serving path's
+    widths it is all a launch costs: the bound function is resolved once,
+    the stream handle is read raw, and pointers and ints pass straight to
+    the extension's METH_FASTCALL entry.
     """
 
-    def __init__(self, source: str, symbol: str,
-                 argtypes: Sequence) -> None:
+    def __init__(self, source: str, symbol: str) -> None:
         self.source = CSRC / source
         self.symbol = symbol
-        self.argtypes = list(argtypes)
         self.launches = 0
         self._fn = None
         KERNELS[symbol] = self
@@ -68,7 +79,9 @@ class CudaKernel:
     @property
     def library(self) -> Path:
         h = hashlib.sha256(self.source.read_bytes())
-        h.update(" ".join(NVCC_FLAGS).encode())
+        for header in sorted(CSRC.glob("*.cuh")):
+            h.update(header.read_bytes())
+        h.update(" ".join(_nvcc_flags()).encode())
         return BUILD_DIR / f"{self.source.stem}-{h.hexdigest()[:16]}.so"
 
     def start_build(self) -> Optional[subprocess.Popen]:
@@ -80,7 +93,7 @@ class CudaKernel:
         BUILD_DIR.mkdir(parents=True, exist_ok=True)
         tmp = lib.with_suffix(f".{os.getpid()}.tmp")
         proc = subprocess.Popen(
-            [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(self.source)],
+            [_nvcc(), *_nvcc_flags(), "-o", str(tmp), str(self.source)],
             stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
         proc.tmp_path = tmp
         return proc
@@ -94,22 +107,25 @@ class CudaKernel:
             raise RuntimeError(f"nvcc failed for {lib.name}:\n{out}")
         os.replace(proc.tmp_path, lib)
 
-    def load(self) -> None:
+    def load(self):
+        """Build (if needed) and import the extension module; returns its
+        launch function, kept for every later launch."""
         if self._fn is not None:
-            return
+            return self._fn
         lib = self.library
         self.finish_build(self.start_build(), lib)
-        fn = getattr(ctypes.CDLL(str(lib)), self.symbol)
-        fn.argtypes = self.argtypes
-        fn.restype = ctypes.c_int
-        self._fn = fn
+        spec = importlib.util.spec_from_file_location(self.source.stem, lib)
+        module = importlib.util.module_from_spec(spec)
+        spec.loader.exec_module(module)
+        self._fn = getattr(module, self.symbol)
+        return self._fn
 
-    def launch(self, *args) -> None:
-        """Launch on the current stream; no synchronization."""
-        self.load()
-        stream = torch.cuda.current_stream().cuda_stream
-        rc = self._fn(*args, stream)
-        if rc != 0:
+    def launch(self, stream: int, *args) -> None:
+        """Launch on ``stream`` (the raw handle :func:`stream_of` gives);
+        no synchronization. Pointers (from :func:`ptr`) and ints pass as
+        Python ints, in the C entry's order, the stream last."""
+        rc = (self._fn or self.load())(*args, stream)
+        if rc:
             raise RuntimeError(f"{self.symbol}: CUDA error {rc} at launch")
         self.launches += 1
 
@@ -134,14 +150,27 @@ def reset_launches() -> None:
         k.launches = 0
 
 
-def ptr(t: torch.Tensor) -> ctypes.c_void_p:
-    return ctypes.c_void_p(t.data_ptr())
+def ptr(t: torch.Tensor) -> int:
+    return t.data_ptr()
+
+
+def stream_of(t: torch.Tensor) -> int:
+    """The raw handle of PyTorch's current stream on ``t``'s card, read
+    without building a ``torch.cuda.Stream`` object."""
+    return torch._C._cuda_getCurrentRawStream(t.get_device())
 
 
 def check_cuda(name: str, t: torch.Tensor, dtype: torch.dtype,
                shape: Optional[Sequence[int]] = None) -> None:
-    """Validate one kernel argument before its pointer crosses ctypes."""
-    if t.device.type != "cuda":
+    """Validate one kernel argument before its pointer reaches a kernel:
+    a CUDA tensor of ``dtype`` (and ``shape``, where given), contiguous
+    and 16-byte aligned. One pass of cheap tests; the message is built
+    only when one fails."""
+    if (t.is_cuda and t.dtype is dtype and t.is_contiguous()
+            and not t.data_ptr() & 15
+            and (shape is None or t.shape == tuple(shape))):
+        return
+    if not t.is_cuda:
         raise ValueError(f"{name}: expected a CUDA tensor, got {t.device}")
     if t.dtype != dtype:
         raise ValueError(f"{name}: expected {dtype}, got {t.dtype}")
@@ -150,5 +179,4 @@ def check_cuda(name: str, t: torch.Tensor, dtype: torch.dtype,
                          f"got {tuple(t.shape)}")
     if not t.is_contiguous():
         raise ValueError(f"{name}: expected a contiguous tensor")
-    if t.data_ptr() % 16:
-        raise ValueError(f"{name}: expected 16-byte alignment")
+    raise ValueError(f"{name}: expected 16-byte alignment")

@@ -12,7 +12,14 @@ with an NVIDIA H100 and the CUDA toolkit. The script
 3. holds each kernel against its plain PyTorch version on the card, at
    the main path's shapes, with exact equality (every output is an
    integer or a bool), and times kernel, plain version and (for the
-   expansion) ``torch.searchsorted`` with CUDA events;
+   expansion) ``torch.searchsorted`` with CUDA events; the expansion is
+   also held against its plain version on seeded adversarial grids
+   (long runs of empty lanes, a lane longer than a tile, totals below,
+   at and far above the buffer, a buffer that is no multiple of the
+   tile, negative counts, 8 blocks of different totals with one empty),
+   each at A = 32 and 128, and is timed at B = 16384 and 4096 three
+   ways: the whole call, its launches' device time alone, and
+   ``torch.searchsorted`` over the same lanes;
 4. serves 3 ``match_batch`` calls of 4096 topic strings through
    ``TorchMatcher`` — the main path — with the kernels' launch counts
    reset just before and read just after, and checks 256 rows of each
@@ -22,16 +29,20 @@ with an NVIDIA H100 and the CUDA toolkit. The script
    and checks the device's per-peer buckets against the host bucketing;
 6. holds the mesh ring-hop kernel against its plain version for both
    mesh axes at the mesh path's shape ``[2, 4, n_peers + 2]`` (n_peers 0
-   and 8) and at ``[2, 4, 1 << 20]``, timing kernel, plain version and
-   ``torch.roll``;
+   and 8) and at ``[2, 4, 1 << 20]``, timing kernel, its device time,
+   plain version and ``torch.roll``; then splits the host time of 1000
+   back-to-back hops at ``[2, 4, 2]`` into the parts of the launch path,
+   beside the longer path it replaced and ``torch.roll``;
 7. compiles BASELINE config 5 (``config_multi_tenant``: 10K Zipf-sized
    tenants, cut from 10M to 2M subscriptions) onto a ``make_mesh(2, 4)``
    grid and serves 3 ``match_batch`` calls of 4096 config-5 queries
    through ``TorchMeshMatcher`` — the mesh path — with the launch counts
-   reset just before and read just after; checks 256 rows of each batch
-   against the host oracle, every block's peer buckets against the host
-   bucketing and the ring-merged per-peer totals; then times one more
-   batch stage by stage;
+   reset just before and read just after (per batch: the walk R·S = 8
+   times, the expansion once for all blocks, the ring hop 4 times);
+   checks 256 rows of each batch against the host oracle, every block's
+   peer buckets against the host bucketing and the ring-merged per-peer
+   totals; then times one more batch stage by stage, and times the
+   expansion on that batch's own [8, 1024, 32] grids;
 8. serves one checked mesh batch over a 100K-subscription config-5
    population whose deliverer keys name 8 servers, so the blocks bucket
    into 8 peers and the ring merges ``[2, 4, 10]`` count vectors.
@@ -69,6 +80,12 @@ HBM_BPS = 3.35e12
 INT32_OPS = 67e12
 
 
+def bound_ms(row) -> float:
+    """The least time the card could take for a row's work: its bytes
+    over HBM bandwidth or its 32-bit operations over the peak rate."""
+    return max(row["bytes"] / HBM_BPS, row["ops"] / INT32_OPS) * 1e3
+
+
 def fail(msg: str) -> int:
     print(f"chip_smoke: {msg}", file=sys.stderr)
     return 1
@@ -99,6 +116,49 @@ def time_ms(torch, fn, iters: int, warm: int = 2) -> float:
     return start.elapsed_time(end) / iters
 
 
+def time_device_ms(torch, fn, iters: int) -> float:
+    """Device time per call of ``fn``'s launches alone. A sleep kernel
+    holds the stream while the host enqueues ``iters`` calls, so the
+    events around them time the launches back to back on the card, with
+    no host gap. Until the enqueue ends inside the sleep, the sleep
+    doubles and the count halves (the card's launch queue holds about a
+    thousand launches; a fuller queue blocks the host)."""
+    fn()
+    torch.cuda.synchronize()
+    cycles = 1 << 26
+    for _ in range(10):
+        s0 = torch.cuda.Event(enable_timing=True)
+        s1 = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        s0.record()
+        torch.cuda._sleep(cycles)
+        s1.record()
+        t0 = time.perf_counter()
+        for _ in range(iters):
+            fn()
+        end.record()
+        host_ms = (time.perf_counter() - t0) * 1e3
+        torch.cuda.synchronize()
+        if host_ms < s0.elapsed_time(s1):
+            return s1.elapsed_time(end) / iters
+        cycles *= 2
+        iters = max(1, iters // 2)
+    raise AssertionError("the host enqueue outlasted every sleep")
+
+
+def host_us(torch, fn, calls: int = 1000) -> float:
+    """Host time per call of ``calls`` back-to-back calls, no sync inside
+    (one before and one after, outside the clock)."""
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(calls):
+        fn()
+    us = (time.perf_counter() - t0) * 1e6 / calls
+    torch.cuda.synchronize()
+    return us
+
+
 def max_abs_err(torch, got, want) -> int:
     err = 0
     for g, w in zip(got, want):
@@ -124,8 +184,9 @@ def sync(torch, dev) -> None:
 
 def ring_phase(torch, K, dev):
     """K4: ``ring_hop`` against ``ring_hop_plain`` for both mesh axes at
-    every ``RING_N`` width, each timed beside its plain version and
-    ``torch.roll``. Returns the kernels-line row (the mesh path's shape,
+    every ``RING_N`` width, each timed (whole call, and its launch's
+    device time alone) beside its plain version and ``torch.roll``.
+    Returns the kernels-line row (the mesh path's shape,
     ``[2, 4, 2]``, shard axis) and the max error over every case."""
     gen = torch.Generator(device=dev).manual_seed(0)
     err, row = 0, None
@@ -146,17 +207,227 @@ def ring_phase(torch, K, dev):
                                  iters),
                 library_ms=time_ms(torch, lambda: torch.roll(x, 1, dims=axis),
                                    iters))
+            r["device_ms"] = time_device_ms(
+                torch, lambda: K.ring_hop(x, axis), iters)
             print(json.dumps({"phase": "K4", "shape": list(x.shape),
                               "axis": axis, "max_abs_err": e,
-                              "ms": r["ms"], "plain_ms": r["plain_ms"],
+                              "ms": r["ms"], "device_ms": r["device_ms"],
+                              "plain_ms": r["plain_ms"],
                               "roll_ms": r["library_ms"],
-                              "bound_ms": r["bytes"] / HBM_BPS * 1e3}),
+                              "bound_ms": bound_ms(r)}),
                   flush=True)
             if n == RING_N[0] and axis == 1:
                 row = r
     if err:
         raise AssertionError(f"K4 ring_hop differs from ring_hop_plain: {err}")
     return row, err
+
+
+def _long_check(name, t, dtype):
+    """``check_cuda`` as it was before the launch path was cut: one test
+    after another, kept here to time the two paths side by side."""
+    if t.device.type != "cuda":
+        raise ValueError(f"{name}: expected a CUDA tensor")
+    if t.dtype != dtype:
+        raise ValueError(f"{name}: expected {dtype}")
+    if not t.is_contiguous():
+        raise ValueError(f"{name}: expected a contiguous tensor")
+    if t.data_ptr() % 16:
+        raise ValueError(f"{name}: expected 16-byte alignment")
+
+
+def k4_host_split(torch, K, D, dev, smi):
+    """Where a ring hop's time goes on the host at the serving shape
+    ``[2, 4, 2]``: 1000 back-to-back calls of the whole wrapper and of each
+    part of its launch path alone, host clock, no sync inside. Beside the
+    current path, the longer one it replaced, rebuilt here from the same
+    library: the checks one by one, ``torch.empty_like``, a
+    ``torch.cuda.Stream`` object and fresh ``c_void_p`` pointers per
+    launch, and the C entry called through ``ctypes``; and
+    ``torch.roll``. Returns the split, microseconds per call."""
+    import ctypes
+    x = torch.arange(2 * 4 * 2, dtype=torch.int32, device=dev).reshape(2, 4, 2)
+    out = torch.empty_like(x)
+    r, s, n = x.shape
+    fn = K.RING_HOP.load()
+    stream = D.stream_of(x)
+    c_fn = getattr(ctypes.CDLL(str(K.RING_HOP.library)), "ring_hop")
+    c_fn.argtypes = [ctypes.c_void_p] * 2 + [ctypes.c_int] * 4 \
+        + [ctypes.c_void_p]
+    c_fn.restype = ctypes.c_int
+
+    def long_path():
+        _long_check("x", x, torch.int32)
+        o = torch.empty_like(x)
+        K.RING_HOP.load()
+        rc = c_fn(ctypes.c_void_p(x.data_ptr()), ctypes.c_void_p(o.data_ptr()),
+                  r, s, n, 1, torch.cuda.current_stream().cuda_stream)
+        if rc:
+            raise RuntimeError(rc)
+        return o
+
+    parts = {
+        "ring_hop": lambda: K.ring_hop(x, 1),
+        "long_path": long_path,
+        "torch_roll": lambda: torch.roll(x, 1, dims=1),
+        "checks": lambda: D.check_cuda("x", x, torch.int32),
+        "long_checks": lambda: _long_check("x", x, torch.int32),
+        "empty_like": lambda: torch.empty_like(x),
+        "stream": lambda: D.stream_of(x),
+        "stream_object": lambda: torch.cuda.current_stream().cuda_stream,
+        "pointers": lambda: (D.ptr(x), D.ptr(out)),
+        "void_p_pointers": lambda: (ctypes.c_void_p(x.data_ptr()),
+                                    ctypes.c_void_p(out.data_ptr())),
+        "entry_call": lambda: fn(x.data_ptr(), out.data_ptr(), r, s, n, 1,
+                                 stream),
+        "ctypes_call": lambda: c_fn(x.data_ptr(), out.data_ptr(), r, s, n,
+                                    1, stream),
+    }
+    split = {}
+    for _ in range(2):   # the second pass is the one kept
+        split = {k: host_us(torch, f) for k, f in parts.items()}
+    print(json.dumps({"phase": "K4-host", "shape": [r, s, n], "axis": 1,
+                      "calls": 1000, "card": smi, "us_per_call": split}),
+          flush=True)
+    return split
+
+
+def k3_grids(np, a: int, merge_tile: int):
+    """Seeded adversarial expansion inputs at interval width ``a``:
+    (name, ivl_s, ivl_c, cap) with [G, B, A] int32 numpy grids."""
+    rng = np.random.default_rng(a)
+    b = 1024
+
+    def starts(shape):
+        return rng.integers(0, 1 << 24, shape).astype(np.int32)
+
+    def counts(shape, hi=24, p_empty=0.4):
+        c = rng.integers(1, hi, shape).astype(np.int32)
+        c[rng.random(shape) < p_empty] = 0
+        return c
+
+    out = []
+    # long runs of empty lanes: most rows use one or two of their A
+    # slots, and rows 100-699 are empty altogether
+    c = counts((1, b, a), p_empty=0.97)
+    c[:, 100:700] = 0
+    out.append(("empty_runs", starts(c.shape), c, int(c.sum()) + 333))
+    # one lane longer than a merge tile and a scan tile, among sparse ones
+    c = counts((1, b, a), hi=4, p_empty=0.9)
+    c[0, 5, 3] = 5 * merge_tile + 3
+    c[0, 700, a - 1] = 3 * 2048 + 1
+    out.append(("long_lane", starts(c.shape), c, int(c.sum())))
+    c = counts((1, b, a))
+    tot = int(c.sum())
+    st = starts(c.shape)
+    out.append(("total_lt_cap", st, c, tot + 1))
+    out.append(("total_eq_cap", st, c, tot))
+    out.append(("total_gg_cap", st, c, tot // 40))
+    out.append(("cap_not_tile_multiple", st, c, 3 * merge_tile + 5))
+    c = rng.integers(-9, 16, (1, b, a)).astype(np.int32)
+    out.append(("negative_counts", starts(c.shape), c,
+                int(np.maximum(c, 0).sum()) // 2))
+    # G = 8 blocks of different totals under one cap, block 0 empty
+    cap = 64 * b
+    eq = counts((b, a), hi=6).reshape(-1)                # total == cap
+    eq[np.cumsum(eq) >= cap] = 0
+    eq[-1] += cap - int(eq.sum())
+    c = np.stack([np.zeros((b, a), np.int32),            # empty
+                  counts((b, a), p_empty=0.9995),        # a few lanes
+                  counts((b, a), hi=4, p_empty=0.9),     # total < cap
+                  eq.reshape(b, a),
+                  counts((b, a), hi=200),                # total >> cap
+                  rng.integers(-3, 8, (b, a)).astype(np.int32),
+                  counts((b, a), p_empty=0.97),
+                  counts((b, a), hi=80)])
+    out.append(("blocks8", starts(c.shape), c, cap))
+    return out
+
+
+def k3_adversarial(torch, K, M, dev):
+    """K3 against ``_expand_pairs`` on every adversarial grid at A = 32
+    and 128, exact: the batched entry block by block and, for one-block
+    grids, the [B, A] entry too. Returns the max error."""
+    import numpy as np
+    err, cases = 0, []
+    for a in (32, 128):
+        for name, st, c, cap in k3_grids(np, a, K.EXPAND_MERGE_TILE):
+            s_t = torch.from_numpy(st).to(dev)
+            c_t = torch.from_numpy(c).to(dev)
+            got = K.kernel_expand(s_t, c_t, cap=cap)
+            want = [M._expand_pairs(s_t[g], c_t[g], cap)
+                    for g in range(st.shape[0])]
+            want = [torch.stack(x) for x in zip(*want)]
+            torch.cuda.synchronize()
+            e = max_abs_err(torch, got, want)
+            if st.shape[0] == 1:
+                got2 = K.kernel_expand(s_t[0], c_t[0], cap=cap)
+                torch.cuda.synchronize()
+                e = max(e, max_abs_err(torch, got2, [w[0] for w in want]))
+            err = max(err, e)
+            cases.append({"grid": name, "A": a, "G": int(st.shape[0]),
+                          "cap": cap, "n_pairs": got[3].tolist(),
+                          "trunc_rows": int(got[4].sum()),
+                          "max_abs_err": e})
+    print(json.dumps({"phase": "K3-adversarial", "cases": cases,
+                      "max_abs_err": err}), flush=True)
+    if err:
+        raise AssertionError(f"K3 differs from _expand_pairs: {err}")
+    return err
+
+
+def k3_time(torch, K, M, ivl_s, ivl_c, cap: int, label: str, smi,
+            iters: int = 50):
+    """K3 at one shape: the whole ``kernel_expand`` call, the device time
+    of its launches alone, the plain version and the one-call yardstick
+    ``torch.searchsorted(ends, j, right=True)`` over the same lanes
+    (batched over G for [G, B, A] grids), with its check and its bytes
+    and operations. Returns the kernels-line row."""
+    batched = ivl_s.dim() == 3
+    g = ivl_s.shape[0] if batched else 1
+    b, a = ivl_s.shape[-2:]
+    got = K.kernel_expand(ivl_s, ivl_c, cap=cap)
+    if batched:
+        want = [torch.stack(x) for x in zip(*[
+            M._expand_pairs(ivl_s[i], ivl_c[i], cap) for i in range(g)])]
+    else:
+        want = M._expand_pairs(ivl_s, ivl_c, cap)
+    torch.cuda.synchronize()
+    err = max_abs_err(torch, got, want)
+    if err:
+        raise AssertionError(f"K3 differs from _expand_pairs at {label}: "
+                             f"{err}")
+    ends = torch.cumsum(ivl_c.reshape(g, b * a).clamp(min=0), dim=1,
+                        dtype=torch.int32)
+    j = torch.arange(cap, dtype=torch.int32,
+                     device=ivl_s.device).expand(g, cap).contiguous()
+    n_pairs = got[3].reshape(g)
+    row = dict(
+        bytes=2 * g * b * a * 4 + 2 * g * cap * 4 + g * (b + 1) * 4
+        + g * b + g * 4,
+        # the scan's adds, then the merge steps the data needs (lanes
+        # that start below the limit, and every position) at ~4 ops each
+        ops=g * b * a + 4 * (g * cap + int(
+            (ends - ivl_c.reshape(g, b * a).clamp(min=0)
+             < n_pairs[:, None]).sum())),
+        ms=time_ms(torch, lambda: K.kernel_expand(ivl_s, ivl_c, cap=cap),
+                   iters),
+        device_ms=time_device_ms(
+            torch, lambda: K.kernel_expand(ivl_s, ivl_c, cap=cap), iters),
+        plain_ms=time_ms(torch, lambda: (
+            K._expand_blocks_plain(ivl_s, ivl_c, cap) if batched
+            else M._expand_pairs(ivl_s, ivl_c, cap)), 10),
+        library_ms=time_ms(torch, lambda: torch.searchsorted(
+            ends, j, right=True), iters))
+    print(json.dumps({"phase": "K3-time", "shape": label, "G": g, "B": b,
+                      "A": a, "cap": cap, "card": smi, "max_abs_err": err,
+                      "n_pairs": n_pairs.tolist(),
+                      "trunc_rows": int(got[4].sum()),
+                      "ms": row["ms"], "device_ms": row["device_ms"],
+                      "plain_ms": row["plain_ms"],
+                      "searchsorted_ms": row["library_ms"],
+                      "bound_ms": bound_ms(row)}), flush=True)
+    return row
 
 
 def check_mesh_batch(M, mm, queries, res, pairs, peer_tab) -> None:
@@ -209,14 +480,15 @@ def config5_traffic(tries, batch: int, n_batches: int):
 
 
 def serve_mesh_batch(torch, dev, mm, queries):
-    """One checked ``match_batch`` on the mesh: exactly R·S walk and
-    expansion launches and (R-1)+(S-1) ring hops, then
+    """One checked ``match_batch`` on the mesh: exactly R·S walk
+    launches, one expansion call for the whole grid and (R-1)+(S-1) ring
+    hops, then
     :func:`check_mesh_batch`. Returns the batch's summary."""
     from bifromq_tpu_torch.ops import match as M
     from bifromq_tpu_torch.utils import device as D
     r, s = mm.n_replicas, mm.n_shards
     want = {k: 0 for k in D.KERNELS}
-    want.update(fused_walk=r * s, expand_pairs=r * s,
+    want.update(fused_walk=r * s, expand_pairs=1,
                 ring_hop=(r - 1) + (s - 1))
     before = {k: v.launches for k, v in D.KERNELS.items()}
     sync(torch, dev)
@@ -246,9 +518,11 @@ def serve_mesh_batch(torch, dev, mm, queries):
 def mesh_phase(torch, dev, smi, n_tenants=MESH_TENANTS, total_subs=MESH_SUBS,
                batch=B_SERVE):
     """The mesh path: config 5 on ``make_mesh(*MESH)``, 3 counted
-    checked ``match_batch`` calls, then one batch timed stage by stage.
-    Returns the launch counts of the counted run."""
+    checked ``match_batch`` calls, then one batch timed stage by stage and
+    K3 timed on that batch's grids. Returns the launch counts of the
+    counted run and K3's row at the mesh shape."""
     from bifromq_tpu_torch import workloads
+    from bifromq_tpu_torch.models import kernels as K
     from bifromq_tpu_torch.models.oracle import UNCAPPED_FANOUT
     from bifromq_tpu_torch.ops import match as M
     from bifromq_tpu_torch.parallel.sharded import (TorchMeshMatcher,
@@ -305,7 +579,14 @@ def mesh_phase(torch, dev, smi, n_tenants=MESH_TENANTS, total_subs=MESH_SUBS,
            UNCAPPED_FANOUT, UNCAPPED_FANOUT)
     print(json.dumps({"phase": "mesh-stages", "batch": batch, "card": smi,
                       **stages}), flush=True)
-    return launches
+    # K3 on this batch's own [R·S, b, A] grids, one call for all blocks
+    g = mm.n_replicas * mm.n_shards
+    b, a = fl.res.start.shape[-2:]
+    serve_c = torch.where(fl.res.overflow[..., None], 0, fl.res.count)
+    k3_row = k3_time(torch, K, M, fl.res.start.reshape(g, b, a).contiguous(),
+                     serve_c.reshape(g, b, a).contiguous(),
+                     b * M.expand_cap_lanes(), f"mesh {g}x{b}", smi)
+    return launches, k3_row
 
 
 def mesh_peer_phase(torch, dev, n_tenants=MESH_PEER_TENANTS,
@@ -461,31 +742,15 @@ def main() -> int:
           flush=True)
 
     # ---- K3: ragged-arange expansion --------------------------------------
+    k3_err = k3_adversarial(torch, K, M, dev)
     cap = B_CHECK * M.expand_cap_lanes()
     serve_c = torch.where(walk32.overflow[:, None], 0, walk32.count)
     ivl_s = walk32.start
-    got = K.kernel_expand(ivl_s, serve_c, cap=cap)
-    want = M._expand_pairs(ivl_s, serve_c, cap)
-    torch.cuda.synchronize()
-    k3_err = max_abs_err(torch, got, want)
-    if k3_err:
-        return fail(f"K3 kernel_expand differs from _expand_pairs: {k3_err}")
-    _, ends, _, _, _ = M._expand_prefix(ivl_s, serve_c, cap)
-    j = torch.arange(cap, dtype=torch.int32, device=dev)
-    n = ends.numel()
-    rows["expand_pairs"] = dict(
-        bytes=3 * n * 4 + 2 * cap * 4,
-        ops=cap * (n.bit_length() * 3 + 6),
-        ms=time_ms(torch, lambda: K.kernel_expand(ivl_s, serve_c, cap=cap),
-                   50),
-        plain_ms=time_ms(torch, lambda: M._expand_pairs(ivl_s, serve_c,
-                                                        cap), 10),
-        library_ms=time_ms(torch, lambda: torch.searchsorted(
-            ends, j, right=True), 50))
-    print(json.dumps({"phase": "K3", "max_abs_err": k3_err,
-                      "n_pairs": int(got[3]), "trunc_rows":
-                          int(got[4].sum()),
-                      "ms": rows["expand_pairs"]["ms"]}), flush=True)
+    rows["expand_pairs"] = k3_time(torch, K, M, ivl_s, serve_c, cap,
+                                   f"single B={B_CHECK}", smi)
+    cap = B_SERVE * M.expand_cap_lanes()
+    k3_time(torch, K, M, ivl_s[:B_SERVE].contiguous(),
+            serve_c[:B_SERVE].contiguous(), cap, f"single B={B_SERVE}", smi)
 
     # ---- serve: the main path ---------------------------------------------
     D.reset_launches()
@@ -573,7 +838,8 @@ def main() -> int:
                       "seconds": time.perf_counter() - t0}), flush=True)
 
     rows["ring_hop"], k4_err = ring_phase(torch, K, dev)
-    mesh_launches = mesh_phase(torch, dev, smi)
+    k4_host_split(torch, K, D, dev, smi)
+    mesh_launches, _ = mesh_phase(torch, dev, smi)
     mesh_peer_phase(torch, dev)
 
     # ---- the kernels line -------------------------------------------------
@@ -591,16 +857,13 @@ def main() -> int:
     out = []
     for name, (src, replaces, err) in meta.items():
         r = rows[name]
-        t_bytes = r["bytes"] / HBM_BPS * 1e3
-        t_ops = r["ops"] / INT32_OPS * 1e3
         out.append({"name": name, "route": "cuda",
                     "source": f"bifromq_tpu_torch/csrc/{src}",
                     "replaces": replaces, "launches": launches[name],
                     "max_abs_err": err, "ms": r["ms"],
-                    "plain_ms": r["plain_ms"],
-                    "bound_ms": max(t_bytes, t_ops),
-                    "bound_by": "bytes" if t_bytes >= t_ops
-                    else "operations",
+                    "plain_ms": r["plain_ms"], "bound_ms": bound_ms(r),
+                    "bound_by": "bytes" if r["bytes"] / HBM_BPS
+                    >= r["ops"] / INT32_OPS else "operations",
                     "library_ms": r.get("library_ms")})
     print(json.dumps({"kernels": out}), flush=True)
     print(json.dumps({"ok": True, "device": {

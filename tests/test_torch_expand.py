@@ -3,10 +3,15 @@
 ``bifromq_tpu_torch.ops.match._expand_pairs`` (the plain version of
 ``csrc/expand.cu``, and what ``models.kernels.kernel_expand`` runs on CPU
 tensors) must be array-equal to the reference's lax ``expand_pairs`` and
-its Pallas ``pallas_expand`` in interpret mode; ``_bucket_pairs`` must
-equal ``bucket_pairs_host`` on both bucketing paths (counting scan up to
-16 buckets, stable argsort above). Tolerance: exact equality — every
-output is int32 or bool.
+its Pallas ``pallas_expand`` in interpret mode, on random grids and on
+the grids that stress the kernel's design (long runs of empty lanes, a
+lane longer than a merge tile, totals below, at and far above the buffer,
+a buffer that is no multiple of the tile, negative counts); the batched
+``[G, B, A]`` entry must equal per-block reference calls block by block;
+``_bucket_pairs`` must equal ``bucket_pairs_host`` on both bucketing
+paths (counting scan up to 16 buckets, stable argsort above). The CUDA
+kernels themselves are checked on the card by ``chip_smoke.py``.
+Tolerance: exact equality — every output is int32 or bool.
 """
 
 import numpy as np
@@ -64,6 +69,80 @@ def test_expand_empty_and_truncated():
     assert got[4].all()     # row offsets are cumulative: all rows cut
     for r, g in zip(ref, got):
         assert (r == g).all()
+
+
+def _adversarial(kind, a):
+    """Seeded grids of 24 rows at width ``a`` for one stress case of the
+    expansion kernel: (starts, counts, cap)."""
+    rng = np.random.default_rng(a)
+    b, tile = 24, tk.EXPAND_MERGE_TILE
+    starts = rng.integers(0, 1 << 20, size=(b, a)).astype(np.int32)
+    counts = rng.integers(1, 9, size=(b, a)).astype(np.int32)
+    counts[rng.random((b, a)) < 0.4] = 0
+    total = int(counts.sum())
+    if kind == "empty_runs":
+        counts[rng.random((b, a)) < 0.9] = 0
+        counts[3:17] = 0
+        return starts, counts, int(counts.sum()) + 7
+    if kind == "long_lane":
+        counts[rng.random((b, a)) < 0.8] = 0
+        counts[2, 1] = tile + 5
+        return starts, counts, int(counts.sum())
+    if kind == "negative_counts":
+        counts = rng.integers(-6, 7, size=(b, a)).astype(np.int32)
+        return starts, counts, int(np.maximum(counts, 0).sum()) // 2
+    cap = {"total_lt_cap": total + 1, "total_eq_cap": total,
+           "total_gg_cap": total // 16,
+           "cap_not_tile_multiple": min(total, tile) - 3}[kind]
+    return starts, counts, cap
+
+
+ADVERSARIAL = ("empty_runs", "long_lane", "total_lt_cap", "total_eq_cap",
+               "total_gg_cap", "cap_not_tile_multiple", "negative_counts")
+
+
+@pytest.mark.parametrize("a", [32, 128])
+@pytest.mark.parametrize("kind", ADVERSARIAL)
+def test_expand_adversarial_equals_reference(kind, a):
+    starts, counts, cap = _adversarial(kind, a)
+    got = _port(starts, counts, cap)
+    for ref in (expand_pairs(starts, counts, cap=cap),
+                pallas_expand(starts, counts, cap=cap, interpret=True)):
+        for r, g in zip(ref, got):
+            r = np.asarray(r)
+            assert r.shape == g.shape and (r == g).all()
+
+
+@pytest.mark.parametrize("a", [4, 32])
+def test_expand_batched_equals_per_block_reference(a):
+    """G = 8 blocks of different totals under one cap (block 0 empty,
+    block 4 far past the buffer, block 5 with negative counts) in one
+    [G, B, A] call, held block by block against the reference."""
+    rng = np.random.default_rng(100 + a)
+    g, b, cap = 8, 12, 40
+    starts = rng.integers(0, 1000, size=(g, b, a)).astype(np.int32)
+    counts = rng.integers(0, 3, size=(g, b, a)).astype(np.int32)
+    counts[0] = 0
+    counts[1, 1:] = 0
+    counts[4] *= 9
+    counts[5] = rng.integers(-4, 4, size=(b, a))
+    got = _port(starts, counts, cap)
+    for blk in range(g):
+        ref = expand_pairs(starts[blk], counts[blk], cap=cap)
+        for r, x in zip(ref, got):
+            r = np.asarray(r)
+            assert r.shape == x[blk].shape and (r == x[blk]).all()
+    totals = np.maximum(counts, 0).sum(axis=(1, 2))
+    assert totals[0] == 0 and totals[4] > cap > totals[1]
+
+
+def test_kernel_expand_rejects_other_ranks():
+    with pytest.raises(ValueError):
+        tk.kernel_expand(torch.zeros(4, dtype=torch.int32),
+                         torch.zeros(4, dtype=torch.int32), cap=4)
+    with pytest.raises(ValueError):
+        tk.kernel_expand(torch.zeros((2, 4), dtype=torch.int32),
+                         torch.zeros((1, 2, 4), dtype=torch.int32), cap=4)
 
 
 @pytest.mark.parametrize("n_peers", [0, 3, 14, 15, 40])

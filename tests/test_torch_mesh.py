@@ -17,7 +17,8 @@ The reference runs its device-expand path (``BIFROMQ_DEVICE_EXPAND=1``)
 with the overlay mutation path (``BIFROMQ_MESH_PATCH=0``), set on its
 side only; each reference matcher is built once per test process. Queries
 include an unknown tenant, a ``$SYS`` topic, a pre-parsed level list and
-a topic past ``max_levels``. Tolerance: exact equality — ordered
+a topic past ``max_levels``. A served batch expands all R·S blocks in one
+``kernel_expand`` call. Tolerance: exact equality — ordered
 ``MatchedRoutes`` lists, per-block pair and bucket arrays, the
 ring-merged ``peer_totals`` of every mesh slot, and the stacked tables.
 """
@@ -186,6 +187,25 @@ def test_mesh_overlay_equals_mesh_matcher(monkeypatch):
     _mutate(m, Route, RouteMatcher)
     assert m.overlay_size == 3 and m.compile_count == 1
     _assert_same(ref["mutated"], _served(m, QUERIES), (2, 4))
+
+
+def test_mesh_expands_every_block_in_one_call(monkeypatch):
+    """Each served mesh batch makes exactly one expansion call, with the
+    whole ``[R·S, b, A]`` grid, and still equals the reference."""
+    from bifromq_tpu_torch.models import kernels as tk
+    calls = []
+    real = tk.kernel_expand
+
+    def counted(ivl_s, ivl_c, *, cap):
+        calls.append(tuple(ivl_s.shape))
+        return real(ivl_s, ivl_c, cap=cap)
+    monkeypatch.setattr(tk, "kernel_expand", counted)
+    m = _port("srv", (2, 4), monkeypatch)
+    got = _served(m, QUERIES)
+    _assert_same(_reference("srv", (2, 4)), got, (2, 4))
+    assert len(calls) == 1 and len(calls[0]) == 3 and calls[0][0] == 8
+    m.match_batch(QUERIES[:40])
+    assert len(calls) == 2
 
 
 def test_config_multi_tenant_equals_reference():
