@@ -4,7 +4,10 @@
 - :func:`fused_walk_routes` launches ``csrc/fused_walk.cu``: the whole
   per-batch walk — token hash-mix, bucket probe, successor compaction,
   interval emission and the final keep-order pack — in one launch, one
-  warp per topic row. Row-identical to ``ops.match.walk_routes(esc_k=0)``.
+  warp per topic row, each level's bucket loads issued together (one
+  half-warp per live state's bucket). ``[G, B, W]`` probe grids over
+  stacked shard tables walk every mesh block in the same one launch.
+  Row-identical to ``ops.match.walk_routes(esc_k=0)``, block by block.
 - :func:`kernel_expand` launches ``csrc/expand.cu``: the ragged-arange
   expansion of [B, A] interval grids — or of G such blocks at once,
   ``[G, B, A]`` — into dense (slot, row) pairs. One C entry launches two
@@ -34,6 +37,8 @@ from ..utils.device import CudaKernel, check_cuda, ptr, stream_of
 
 # (K, A) pairs the walk kernel is instantiated for (csrc/fused_walk.cu)
 WALK_SHAPES = ((32, 32), (32, 128), (128, 32), (128, 128))
+# edge-bucket widths P it is instantiated for: one half-warp's int4 loads
+WALK_PROBE_LENS = (16,)
 
 FUSED_WALK = CudaKernel("fused_walk.cu", "fused_walk")
 EXPAND = CudaKernel("expand.cu", "expand_pairs")
@@ -45,6 +50,26 @@ EXPAND_MERGE_TILE = 1792
 RING_HOP = CudaKernel("ring_hop.cu", "ring_hop")
 
 
+def _walk_blocks_plain(trie: DeviceTrie, probes: Probes, **kw
+                       ) -> RouteIntervals:
+    """:func:`walk_routes` (``esc_k=0``) block by block over the leading
+    G axis of ``[G, B, W]`` probes, block g on shard ``g % S`` of the
+    stacked tables, the four results stacked."""
+    n_shards = trie.edge_tab.shape[0]
+    outs = []
+    for g in range(probes.tok_h1.shape[0]):
+        sh = g % n_shards
+        outs.append(walk_routes(
+            DeviceTrie(trie.route_tab[sh], trie.edge_tab[sh], None, None,
+                       trie.route_tab[sh]),
+            Probes(probes.tok_h1[g], probes.tok_h2[g], probes.lengths[g],
+                   probes.roots[g], probes.sys_mask[g], probes.max_len),
+            esc_k=0, **kw))
+    return RouteIntervals(*(torch.stack([getattr(o, f) for o in outs])
+                            for f in ("start", "count", "n_routes",
+                                      "overflow")))
+
+
 def fused_walk_routes(trie: DeviceTrie, probes: Probes, *, probe_len: int,
                       k_states: int = 32,
                       max_intervals: int = 32) -> RouteIntervals:
@@ -53,39 +78,54 @@ def fused_walk_routes(trie: DeviceTrie, probes: Probes, *, probe_len: int,
 
     Drop-in for ``walk_routes(..., esc_k=0)``: no on-device escalation —
     the matcher re-walks overflow rows through this same entry at a
-    higher budget."""
+    higher budget. ``[B, W]`` probes walk ``edge_tab [NB, P, 4]`` /
+    ``route_tab [N, RT_COLS]``. ``[G, B, W]`` probes (a mesh batch, its
+    ``[R, S]`` blocks row-major) walk stacked ``[S, NB, P, 4]`` /
+    ``[S, N, RT_COLS]`` tables, block g on shard ``g % S``, in one
+    launch, and every result gains a leading [G]."""
+    batched = probes.tok_h1.dim() == 3
+    kw = dict(probe_len=probe_len, k_states=k_states,
+              max_intervals=max_intervals)
     if probes.tok_h1.is_cpu:
-        return walk_routes(trie, probes, probe_len=probe_len,
-                           k_states=k_states, max_intervals=max_intervals,
-                           esc_k=0)
+        if batched:
+            return _walk_blocks_plain(trie, probes, **kw)
+        return walk_routes(trie, probes, esc_k=0, **kw)
     if (k_states, max_intervals) not in WALK_SHAPES:
         raise ValueError(f"walk kernel has no (K={k_states}, "
                          f"A={max_intervals}) instance; have {WALK_SHAPES}")
-    b, w = probes.tok_h1.shape
-    nb = trie.edge_tab.shape[0]
-    check_cuda("edge_tab", trie.edge_tab, torch.int32, (nb, probe_len, 4))
-    n = trie.route_tab.shape[0]
-    check_cuda("route_tab", trie.route_tab, torch.int32, (n, RT_COLS))
-    check_cuda("tok_h1", probes.tok_h1, torch.int32, (b, w))
-    check_cuda("tok_h2", probes.tok_h2, torch.int32, (b, w))
-    check_cuda("lengths", probes.lengths, torch.int32, (b,))
-    check_cuda("roots", probes.roots, torch.int32, (b,))
-    check_cuda("sys_mask", probes.sys_mask, torch.bool, (b,))
+    if probe_len not in WALK_PROBE_LENS:
+        raise ValueError(f"walk kernel has no bucket width P={probe_len} "
+                         f"instance; have {WALK_PROBE_LENS}")
+    edge, route = trie.edge_tab, trie.route_tab
+    if not batched:
+        edge, route = edge[None], route[None]
+    g, b, w = probes.tok_h1.shape if batched else (1, *probes.tok_h1.shape)
+    s, nb = edge.shape[:2]
+    n = route.shape[1]
+    lead = (g, b) if batched else (b,)
+    check_cuda("edge_tab", edge, torch.int32, (s, nb, probe_len, 4))
+    check_cuda("route_tab", route, torch.int32, (s, n, RT_COLS))
+    check_cuda("tok_h1", probes.tok_h1, torch.int32, (*lead, w))
+    check_cuda("tok_h2", probes.tok_h2, torch.int32, (*lead, w))
+    check_cuda("lengths", probes.lengths, torch.int32, lead)
+    check_cuda("roots", probes.roots, torch.int32, lead)
+    check_cuda("sys_mask", probes.sys_mask, torch.bool, lead)
     if nb & (nb - 1):
         raise ValueError(f"edge_tab bucket count {nb} is not a power of two")
     dev = probes.tok_h1.device
-    ivl_s = torch.empty((b, max_intervals), dtype=torch.int32, device=dev)
-    ivl_c = torch.empty((b, max_intervals), dtype=torch.int32, device=dev)
-    n_routes = torch.empty(b, dtype=torch.int32, device=dev)
-    overflow = torch.empty(b, dtype=torch.bool, device=dev)
-    if b:
+    ivl_s = torch.empty((*lead, max_intervals), dtype=torch.int32,
+                        device=dev)
+    ivl_c = torch.empty((*lead, max_intervals), dtype=torch.int32,
+                        device=dev)
+    n_routes = torch.empty(lead, dtype=torch.int32, device=dev)
+    overflow = torch.empty(lead, dtype=torch.bool, device=dev)
+    if g and b:
         FUSED_WALK.launch(
-            stream_of(probes.tok_h1), ptr(trie.edge_tab),
-            ptr(trie.route_tab), nb, probe_len, w, ptr(probes.tok_h1),
-            ptr(probes.tok_h2), ptr(probes.lengths), ptr(probes.roots),
-            ptr(probes.sys_mask), b, k_states,
-            ptr(ivl_s), ptr(ivl_c), ptr(n_routes), ptr(overflow),
-            max_intervals)
+            stream_of(probes.tok_h1), ptr(edge), ptr(route), s, nb,
+            probe_len, n, w, ptr(probes.tok_h1), ptr(probes.tok_h2),
+            ptr(probes.lengths), ptr(probes.roots), ptr(probes.sys_mask),
+            g, b, k_states, ptr(ivl_s), ptr(ivl_c), ptr(n_routes),
+            ptr(overflow), max_intervals)
     return RouteIntervals(start=ivl_s, count=ivl_c, n_routes=n_routes,
                           overflow=overflow)
 

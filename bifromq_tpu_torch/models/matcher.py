@@ -138,12 +138,15 @@ class TorchMatcher:
         self.max_intervals = max_intervals
         self.device = resolve_device(device)
         if self.device.type == "cuda":
-            from .kernels import WALK_SHAPES
+            from .kernels import WALK_PROBE_LENS, WALK_SHAPES
             for shape in ((k_states, max_intervals),
                           self._escalation_budget()):
                 if shape not in WALK_SHAPES:
                     raise ValueError(f"the walk kernel has no (K, A) = "
                                      f"{shape} instance; have {WALK_SHAPES}")
+            if probe_len not in WALK_PROBE_LENS:
+                raise ValueError(f"the walk kernel has no bucket width "
+                                 f"{probe_len}; have {WALK_PROBE_LENS}")
         self.auto_compact = auto_compact
         self.compact_threshold = compact_threshold
         # authoritative state (exact guards; host fallback matches)

@@ -8,8 +8,8 @@ grid is a leading ``[R, S]`` block axis of every tensor:
 
 - the stacked shard tables ``[S, ...]`` are uploaded once and shared by
   every replica row;
-- the walk (``csrc/fused_walk.cu``) runs once per (replica, shard)
-  block, on that shard's table views;
+- the walk (``csrc/fused_walk.cu``) runs once for all R·S blocks, each
+  on its shard's slice of the stacked tables;
 - the expansion (``csrc/expand.cu``) runs once for all R·S blocks, each
   into its own pair buffer;
 - the per-peer delivery counts of all blocks merge by a ring of
@@ -18,7 +18,7 @@ grid is a leading ``[R, S]`` block axis of every tensor:
   chips.
 
 Serving is ``TorchMeshMatcher.match_batch``: shard-route → host tokenize
-per shard → walk per block → one expansion call for the whole grid →
+per shard → one walk launch and one expansion call for the whole grid →
 per-peer bucketing per block → ring merge → fetch → ``MatchedRoutes``.
 Mutations take the overlay + compaction path of
 :class:`~bifromq_tpu_torch.models.matcher.TorchMatcher`. Not ported yet:
@@ -149,39 +149,26 @@ def make_mesh(n_replicas: int, n_shards: int, device=None) -> MeshShape:
 def mesh_walk(dev_tables: Tuple[torch.Tensor, ...], probes: Probes, *,
               probe_len: int, k_states: int,
               max_intervals: int) -> RouteIntervals:
-    """The mesh match step: the walk kernel once per (replica, shard)
-    block of the ``[R, S, B, ...]`` probe grids, on that shard's table
-    views. Returns the ``[R, S, B, A]`` interval grids and ``[R, S, B]``
-    totals and overflow flags. No escalation re-walk: the mesh serves
-    overflow rows from the host oracle."""
+    """The mesh match step: one walk-kernel launch for every (replica,
+    shard) block of the ``[R, S, B, ...]`` probe grids, block ``(r, s)``
+    on shard s's slice of the stacked tables. Returns the ``[R, S, B, A]``
+    interval grids and ``[R, S, B]`` totals and overflow flags. No
+    escalation re-walk: the mesh serves overflow rows from the host
+    oracle."""
     from ..models.kernels import fused_walk_routes
     edge, child, route = dev_tables
-    r, s = probes.lengths.shape[:2]
-    blocks = []
-    for rep in range(r):
-        for sh in range(s):
-            # route_tab stands in for the node_tab the walk never reads
-            trie = DeviceTrie(route[sh], edge[sh], child[sh], None,
-                              route[sh])
-            blocks.append(fused_walk_routes(
-                trie, Probes(probes.tok_h1[rep, sh], probes.tok_h2[rep, sh],
-                             probes.lengths[rep, sh], probes.roots[rep, sh],
-                             probes.sys_mask[rep, sh], probes.max_len),
-                probe_len=probe_len, k_states=k_states,
-                max_intervals=max_intervals))
-    grid = _stacker(blocks, r, s)
-    return RouteIntervals(start=grid("start"), count=grid("count"),
-                          n_routes=grid("n_routes"),
-                          overflow=grid("overflow"))
-
-
-def _stacker(blocks, r: int, s: int):
-    """``grid(field)``: one field of R·S per-block results (row-major
-    over the grid) stacked into an ``[R, S, ...]`` tensor."""
-    def grid(field):
-        x = torch.stack([getattr(b, field) for b in blocks])
-        return x.reshape(r, s, *x.shape[1:])
-    return grid
+    r, s, b, w = probes.tok_h1.shape
+    # route_tab stands in for the node_tab the walk never reads
+    trie = DeviceTrie(route, edge, child, None, route)
+    out = fused_walk_routes(
+        trie, Probes(probes.tok_h1.reshape(r * s, b, w),
+                     probes.tok_h2.reshape(r * s, b, w),
+                     probes.lengths.reshape(r * s, b),
+                     probes.roots.reshape(r * s, b),
+                     probes.sys_mask.reshape(r * s, b), probes.max_len),
+        probe_len=probe_len, k_states=k_states, max_intervals=max_intervals)
+    return RouteIntervals(*(x.reshape(r, s, *x.shape[1:]) for x in (
+        out.start, out.count, out.n_routes, out.overflow)))
 
 
 def _ring_allreduce(x: torch.Tensor, axis_name: str,
@@ -405,8 +392,8 @@ class TorchMeshMatcher(TorchMatcher):
                              probes=probes, lengths_np=lengths)
 
     def _dispatch_prepared(self, prep: _MeshPrepared) -> _MeshInFlight:
-        """Stage 1: enqueue the walk per block, one expansion for the
-        grid and the ring merge; returns once all are enqueued."""
+        """Stage 1: enqueue one walk and one expansion for the grid and
+        the ring merge; returns once all are enqueued."""
         if self._base_ct is not prep.ct:
             # a compaction swap landed between prep and dispatch: roots
             # and salts are per-snapshot, so re-prep against the new base

@@ -173,3 +173,110 @@ def diverse_topics(n: int, *, seed: int = 0,
             levels.append(f"d{rng.randrange(1 << 20)}")
         out.append("/".join(levels) if levels else "x")
     return out
+
+
+# ------------------- seeded adversarial kernel inputs ----------------------
+# Not reference workloads: inputs that drive the port's kernels through
+# their rare paths, for the parity checks on the card and on the CPU.
+
+def hash_edge_topics(n: int, *, max_levels: int = 16, max_bytes: int = 256,
+                     seed: int = 0) -> List[str]:
+    """``n`` topic strings for the level hash's edge cases: a 128-byte
+    level and one over a block (a padding row), empty levels, a row at
+    ``max_levels`` and one past it, a level that ends on the row's last
+    byte (byte ``max_bytes - 1``), a row past the byte budget, ``$``
+    topics, multi-byte UTF-8, then seeded random rows of short levels at
+    every byte alignment. Deterministic per seed."""
+    last = "y" * 128                           # ends at byte max_bytes - 1
+    fill = max_bytes - len(last) - 1
+    head = "/".join("x" * min(128, fill - 129 * i)
+                    for i in range(-(-fill // 129))) if fill > 0 else ""
+    fixed = ["q" * 128 + "/a", "z" * 129, "", "/", "//", "a//b",
+             "trailing/", "/leading", "/".join(["l"] * max_levels),
+             "/".join(["l"] * (max_levels + 1)),
+             (head + "/" + last) if head else last,
+             "p" * (max_bytes + 1), "$SYS/health/cpu", "$share/g/t", "$x",
+             "é" * 64, "日本語/датчик//température"]
+    rng = random.Random(seed)
+    segs = ["", "a", "bb", "ccc", "sensor", "$SYS", "日本語", "x" * 40,
+            "d" * 127, "0123456789abcdef"]
+    out = fixed[:n]
+    while len(out) < n:
+        depth = rng.randint(1, max_levels)
+        out.append("/".join(rng.choice(segs) if rng.random() < 0.3 else
+                            "k" * rng.randint(0, 20) for _ in range(depth)))
+    return out
+
+
+def dense_walk_tables(seed: int, *, n_nodes: int = 128,
+                      n_buckets: int = 64, probe_len: int = 16,
+                      n_tokens: int = 4, batch: int = 256,
+                      depth: int = 10):
+    """A seeded synthetic automaton and probe batch for the walk: every
+    bucket of the ``[n_buckets, probe_len, 4]`` edge table holds
+    ``probe_len`` entries (real edges, repeated keys with other children,
+    and decoys that share the bucket and part of a key), most nodes have
+    a '+' child, so rows of ``depth`` levels widen past any K and reach
+    the sorted compaction and the state and interval overflows.
+
+    Returns a dict of int32 numpy arrays (``sys_mask`` bool):
+    ``edge_tab``, ``route_tab`` ``[n_nodes, 8]`` (the ``route_tab``
+    columns of ``ops.match``), and ``tok_h1``/``tok_h2``
+    ``[batch, depth + 1]``, ``lengths``, ``roots``, ``sys_mask``
+    ``[batch]``."""
+    import numpy as np
+    from .models.automaton import _mix_u32
+    rng = np.random.default_rng(seed)
+    mask = np.uint32(n_buckets - 1)
+    tok = rng.integers(-2**31, 2**31, (n_tokens, 2)).astype(np.int32)
+    # real edges: (node, token) -> child, nine in ten pairs
+    node, t = (x.ravel() for x in np.meshgrid(np.arange(n_nodes),
+                                              np.arange(n_tokens)))
+    keep = rng.random(node.size) < 0.9
+    keys = np.stack([node[keep], tok[t[keep], 0], tok[t[keep], 1],
+                     rng.integers(0, n_nodes, keep.sum())], 1)
+    keys = keys.astype(np.int32)
+    # decoys: a real key with its h1 or h2 changed, or a random node
+    dec = keys[rng.integers(0, len(keys), 40 * n_buckets * probe_len)]
+    kind = rng.integers(0, 3, len(dec))
+    dec[kind == 0, 1] ^= rng.integers(1, 1 << 30, (kind == 0).sum(),
+                                      dtype=np.int32)
+    dec[kind == 1, 2] ^= rng.integers(1, 1 << 30, (kind == 1).sum(),
+                                      dtype=np.int32)
+    dec[kind == 2, 0] = rng.integers(n_nodes, 2 * n_nodes,
+                                     (kind == 2).sum())
+    dec[:, 3] = rng.integers(0, n_nodes, len(dec))
+
+    def bucket(k):
+        return (_mix_u32(k[:, 0], k[:, 1], k[:, 2]) & mask).astype(np.int64)
+    kb, db = bucket(keys), bucket(dec)
+    edge_tab = np.empty((n_buckets, probe_len, 4), dtype=np.int32)
+    for bk in range(n_buckets):
+        real = keys[kb == bk][:probe_len - 4]
+        again = real[rng.integers(0, len(real), 2)].copy() if len(real) \
+            else np.empty((0, 4), np.int32)
+        again[:, 3] = rng.integers(0, n_nodes, len(again))
+        ent = np.concatenate([real, again, dec[db == bk]])[:probe_len]
+        if len(ent) < probe_len:
+            raise ValueError("too few decoys to fill a bucket; raise the "
+                             "decoy count")
+        edge_tab[bk] = ent[rng.permutation(probe_len)]
+    route_tab = np.zeros((n_nodes, 8), dtype=np.int32)
+    route_tab[:, 0] = np.where(rng.random(n_nodes) < 0.95,
+                               rng.integers(0, n_nodes, n_nodes), -1)
+    for cnt, start in ((1, 3), (2, 4)):          # '#'-child, own interval
+        route_tab[:, cnt] = np.where(rng.random(n_nodes) < 0.3,
+                                     rng.integers(1, 6, n_nodes), 0)
+        route_tab[:, start] = rng.integers(0, 1 << 20, n_nodes)
+    w = depth + 1
+    levels = rng.integers(0, n_tokens, (batch, w))
+    miss = rng.random((batch, w)) < 0.05
+    tok_h1 = np.where(miss, rng.integers(-2**31, 2**31, (batch, w)),
+                      tok[levels, 0]).astype(np.int32)
+    tok_h2 = tok[levels, 1].astype(np.int32)
+    lengths = rng.integers(0, depth + 1, batch).astype(np.int32)
+    lengths[rng.random(batch) < 0.05] = -1
+    return dict(edge_tab=edge_tab, route_tab=route_tab, tok_h1=tok_h1,
+                tok_h2=tok_h2, lengths=lengths,
+                roots=rng.integers(0, n_nodes, batch).astype(np.int32),
+                sys_mask=rng.random(batch) < 0.1)

@@ -12,19 +12,30 @@ with an NVIDIA H100 and the CUDA toolkit. The script
 3. holds each kernel against its plain PyTorch version on the card, at
    the main path's shapes, with exact equality (every output is an
    integer or a bool), and times kernel, plain version and (for the
-   expansion) ``torch.searchsorted`` with CUDA events; the expansion is
-   also held against its plain version on seeded adversarial grids
-   (long runs of empty lanes, a lane longer than a tile, totals below,
-   at and far above the buffer, a buffer that is no multiple of the
-   tile, negative counts, 8 blocks of different totals with one empty),
-   each at A = 32 and 128, and is timed at B = 16384 and 4096 three
-   ways: the whole call, its launches' device time alone, and
-   ``torch.searchsorted`` over the same lanes;
+   expansion) ``torch.searchsorted`` with CUDA events:
+   - the level hash (K1) on the probe topics, the diverse topics, a
+     seeded edge-case batch (a 128-byte level, empty levels, a row at
+     ``max_levels``, a level ending on the row's last byte, padding
+     rows, ``$`` topics) and that batch with its level boundaries moved
+     outside the rows; timed at B = 16384 and 4096, with the live lanes;
+   - the walk (K2) on the config-2 probes at (K, A) = (32, 32) and
+     (128, 128), and on seeded synthetic automata whose buckets are full
+     and whose rows reach the sorted compaction and overflow, one table
+     and four stacked under a [2, 4] block grid in one batched call;
+   - the expansion (K3) also on seeded adversarial grids (long runs of
+     empty lanes, a lane longer than a tile, totals below, at and far
+     above the buffer, a buffer that is no multiple of the tile,
+     negative counts, 8 blocks of different totals with one empty), each
+     at A = 32 and 128, timed at B = 16384 and 4096 three ways: the
+     whole call, its launches' device time alone, and
+     ``torch.searchsorted`` over the same lanes;
 4. serves 3 ``match_batch`` calls of 4096 topic strings through
    ``TorchMatcher`` — the main path — with the kernels' launch counts
    reset just before and read just after, and checks 256 rows of each
-   batch against the host oracle; then times one more batch stage by
-   stage (prepare, dispatch, fetch, host expansion);
+   batch against the host oracle and the launches of each batch (the
+   hash once, the walk once or twice, the expansion once); then times
+   one more batch stage by stage (prepare, dispatch, fetch, host
+   expansion);
 5. serves a 100K-subscription tenant whose deliverer keys name 8 servers
    and checks the device's per-peer buckets against the host bucketing;
 6. holds the mesh ring-hop kernel against its plain version for both
@@ -37,12 +48,15 @@ with an NVIDIA H100 and the CUDA toolkit. The script
    tenants, cut from 10M to 2M subscriptions) onto a ``make_mesh(2, 4)``
    grid and serves 3 ``match_batch`` calls of 4096 config-5 queries
    through ``TorchMeshMatcher`` — the mesh path — with the launch counts
-   reset just before and read just after (per batch: the walk R·S = 8
-   times, the expansion once for all blocks, the ring hop 4 times);
-   checks 256 rows of each batch against the host oracle, every block's
-   peer buckets against the host bucketing and the ring-merged per-peer
-   totals; then times one more batch stage by stage, and times the
-   expansion on that batch's own [8, 1024, 32] grids;
+   reset just before and read just after (per batch: the walk once and
+   the expansion once for all blocks, the ring hop 4 times); checks 256
+   rows of each batch against the host oracle, every block's peer
+   buckets against the host bucketing and the ring-merged per-peer
+   totals; then times one more batch stage by stage, holds the walk's
+   one launch on that batch's own [8, 1024, W] probe grids against the
+   plain walk block by block and times it beside 8 per-block launches
+   of the same kernel, and times the expansion on the batch's own
+   [8, 1024, 32] grids;
 8. serves one checked mesh batch over a 100K-subscription config-5
    population whose deliverer keys name 8 servers, so the blocks bucket
    into 8 peers and the ring merges ``[2, 4, 10]`` count vectors.
@@ -74,16 +88,47 @@ MESH_SUBS = 2_000_000    # config 5 has 10M; cut to 2M (PERF.md section 4)
 MESH_PEER_TENANTS = 1_000   # config 5's shape, keys naming 8 servers
 MESH_PEER_SUBS = 100_000
 RING_N = (2, 10, 1 << 20)  # n_peers + 2 for n_peers 0 and 8; bandwidth
-# H100 SXM published peaks (NVIDIA H100 datasheet): HBM bytes/s, and
-# the 67 TFLOP/s float32 non-tensor rate, used for 32-bit integer ops
+# H100 SXM published peaks, x 132 SMs x the 1.98 GHz SXM boost clock
+# (the clock at which the datasheet's 67 TFLOP/s float32 rate is 132 x
+# 128 lanes x 2): HBM bytes/s (NVIDIA H100 datasheet); the integer ALU
+# pipe, 64 INT32 lanes per SM (NVIDIA H100 Tensor Core GPU Architecture
+# whitepaper), which alone runs logic ops, shifts and compares (LOP3,
+# SHF, PRMT, ISETP); and the issue rate, one warp instruction per clock
+# on each of an SM's 4 schedulers, 128 lanes, which caps all integer
+# instructions together, since an add may also issue as an IMAD on the
+# FMA pipe (Nsight Compute Kernel Profiling Guide, "Pipelines").
 HBM_BPS = 3.35e12
-INT32_OPS = 67e12
+INT32_OPS = 64 * 132 * 1.98e9
+ISSUE_OPS = 128 * 132 * 1.98e9
+# K1's 32-bit instructions per live lane, the least one BLAKE2b block
+# needs on sm_90: a G step makes 4 64-bit adds (a + b + m is one
+# three-input add), 2 instructions each, on either pipe; 4 xors, 2 LOP3
+# each, and rotates by 24, 16 and 63, 2 SHF or PRMT each (by 32 swaps
+# the halves: none), on the ALU: 14 ALU and 22 in all. 12 rounds of 8
+# G, but the output v0 ^ v8 (2 LOP3) reads only 2 G of the last round in
+# full, 3 up to their 7th step (10 ALU, 18 in all) and one up to its 5th
+# (6, 12).
+K1_ALU_OPS = 11 * 8 * 14 + 2 * 14 + 3 * 10 + 6 + 2
+K1_OPS = 11 * 8 * 22 + 2 * 22 + 3 * 18 + 12 + 2
+
+
+def _bound_times(row):
+    return (row["bytes"] / HBM_BPS,
+            max(row.get("alu_ops", row["ops"]) / INT32_OPS,
+                row["ops"] / ISSUE_OPS))
 
 
 def bound_ms(row) -> float:
     """The least time the card could take for a row's work: its bytes
-    over HBM bandwidth or its 32-bit operations over the peak rate."""
-    return max(row["bytes"] / HBM_BPS, row["ops"] / INT32_OPS) * 1e3
+    over HBM bandwidth, its ALU-only 32-bit operations (``alu_ops``,
+    default all of ``ops``) over the ALU rate, or all its 32-bit
+    operations over the issue rate, whichever is longest."""
+    return max(_bound_times(row)) * 1e3
+
+
+def bound_by(row) -> str:
+    t_bytes, t_ops = _bound_times(row)
+    return "bytes" if t_bytes >= t_ops else "operations"
 
 
 def fail(msg: str) -> int:
@@ -430,6 +475,198 @@ def k3_time(torch, K, M, ivl_s, ivl_c, cap: int, label: str, smi,
     return row
 
 
+def sass_histogram(lib) -> dict:
+    """Opcode counts of the SASS in one built kernel library (static: each
+    instruction once, wherever it sits), read with the toolkit's
+    ``cuobjdump``; an empty dict where that tool is missing or fails."""
+    import re
+    from bifromq_tpu_torch.utils.device import _nvcc
+    exe = os.path.join(os.path.dirname(_nvcc()), "cuobjdump")
+    try:
+        sass = subprocess.run([exe, "-sass", str(lib)], capture_output=True,
+                              text=True, timeout=120).stdout
+    except (OSError, subprocess.SubprocessError):
+        return {}
+    counts: dict = {}
+    for op in re.findall(r"/\*[0-9a-f]{4,}\*/\s+(?:@!?U?P[T0-9]+\s+)?"
+                         r"([A-Z][A-Z0-9_.]*)", sass):
+        counts[op] = counts.get(op, 0) + 1
+    return dict(sorted(counts.items(), key=lambda kv: -kv[1]))
+
+
+def k1_inputs(torch, T, tb, root: int, max_levels: int, batch: int, dev):
+    """Pack ``tb`` into a ``batch``-row byte block and upload the K1
+    arguments (rows past ``len(tb)`` are padding rows, nlv == -1)."""
+    lengths, _, _, rows_b, starts, lens = T.pack_topic_bytes(
+        tb, [root] * len(tb), max_levels=max_levels, batch=batch)
+    args = [torch.from_numpy(a).to(dev) for a in
+            (rows_b, starts, lens, lengths.reshape(batch, 1))]
+    return args
+
+
+def k1_phase(torch, T, workloads, TopicBytes, ct, root, dev, smi):
+    """K1 against ``_hash_lanes`` with exact equality on the probe
+    topics, the diverse topics, the seeded edge-case batch (a 128-byte
+    level, empty levels, a row at ``max_levels``, a level ending on byte
+    ``mb - 1``, padding rows, ``$`` topics) and that batch with level
+    boundaries moved outside their rows (the clamped path); then timed on
+    the probe topics at B = 16384 and at their first 4096 rows. Returns
+    the max error and the kernels-line row (B = 16384)."""
+    import numpy as np
+    h0 = T.h0_tensor(ct.salt, dev)
+    mb = T.tok_max_bytes()
+    probe = TopicBytes.from_topics(["/".join(t) for t in
+                                    workloads.probe_topics(B_CHECK, seed=1)])
+    edge = workloads.hash_edge_topics(B_CHECK - 64, max_levels=ct.max_levels,
+                                      max_bytes=mb, seed=2)
+    cases = {
+        "probe_topics": k1_inputs(torch, T, probe, root, ct.max_levels,
+                                  B_CHECK, dev),
+        "diverse_topics": k1_inputs(
+            torch, T, TopicBytes.from_topics(
+                workloads.diverse_topics(B_CHECK, seed=0)),
+            root, ct.max_levels, B_CHECK, dev),
+        "edge_cases": k1_inputs(torch, T, TopicBytes.from_topics(edge), root,
+                                ct.max_levels, B_CHECK, dev),
+    }
+    rng = np.random.default_rng(3)
+    rows_b, starts, lens, nlv = cases["edge_cases"]
+    shape = tuple(starts.shape)
+    cases["clamped"] = [
+        rows_b,
+        torch.from_numpy(rng.integers(-9, mb + 9, shape).astype(
+            np.int32)).to(dev),
+        torch.from_numpy(rng.integers(-3, 141, shape).astype(
+            np.int32)).to(dev), nlv]
+    err, out = 0, {}
+    for name, args in cases.items():
+        got = T.blake2b_levels(*args, h0)
+        want = T._hash_lanes(*args, h0)
+        torch.cuda.synchronize()
+        e = max_abs_err(torch, got, want)
+        err = max(err, e)
+        nlv = args[3]
+        out[name] = {"max_abs_err": e,
+                     "live": int(nlv.clamp(0, shape[1]).sum()),
+                     "padding_rows": int((nlv < 0).sum())}
+    if err:
+        raise AssertionError(f"K1 blake2b_levels differs from _hash_lanes: "
+                             f"{out}")
+    row = None
+    for b in (B_CHECK, B_SERVE):
+        args = [a[:b].contiguous() for a in cases["probe_topics"]]
+        live = int(args[3].clamp(min=0).sum())
+        r = dict(live=live,
+                 bytes=args[0].numel() + 2 * args[1].numel() * 4 + b * 4 + 64
+                 + 2 * args[1].numel() * 4,
+                 ops=live * K1_OPS, alu_ops=live * K1_ALU_OPS,
+                 ms=time_ms(torch, lambda: T.blake2b_levels(*args, h0), 50),
+                 device_ms=time_device_ms(
+                     torch, lambda: T.blake2b_levels(*args, h0), 50),
+                 plain_ms=time_ms(torch, lambda: T._hash_lanes(*args, h0),
+                                  3, 1))
+        out[f"B={b}"] = {"live": live, "ms": r["ms"],
+                         "device_ms": r["device_ms"],
+                         "plain_ms": r["plain_ms"], "bound_ms": bound_ms(r),
+                         "bound_by": bound_by(r)}
+        row = row or r
+    print(json.dumps({"phase": "K1", "card": smi, "max_abs_err": err,
+                      "ops_per_lane": K1_OPS, "alu_ops_per_lane": K1_ALU_OPS,
+                      "sass": sass_histogram(T.BLAKE2B.library),
+                      "cases": out}), flush=True)
+    return err, row
+
+
+WALK_FIELDS = ("start", "count", "n_routes", "overflow")
+
+
+def k2_hold(torch, K, M, trie, probes, k_states: int, a: int, probe_len: int,
+            label: str):
+    """One K2 call against its plain version (``walk_routes(esc_k=0)``,
+    block by block for ``[G, B, W]`` probes) with exact equality. Prints
+    the case and returns the kernel's result and the max error."""
+    kw = dict(probe_len=probe_len, k_states=k_states, max_intervals=a)
+    got = K.fused_walk_routes(trie, probes, **kw)
+    if probes.tok_h1.dim() == 3:
+        want = K._walk_blocks_plain(trie, probes, **kw)
+    else:
+        want = M.walk_routes(trie, probes, esc_k=0, **kw)
+    torch.cuda.synchronize()
+    err = max_abs_err(torch, [getattr(got, f) for f in WALK_FIELDS],
+                      [getattr(want, f) for f in WALK_FIELDS])
+    print(json.dumps({"phase": "K2", "case": label, "K": k_states, "A": a,
+                      "shape": list(probes.tok_h1.shape), "max_abs_err": err,
+                      "overflow_rows": int(got.overflow.sum()),
+                      "routes_per_topic":
+                          float(got.n_routes.float().mean())}), flush=True)
+    if err:
+        raise AssertionError(f"K2 fused_walk_routes differs from walk_routes "
+                             f"on {label} (K={k_states}, A={a}): {err}")
+    return got, err
+
+
+def k2_dense(torch, K, M, workloads, dev) -> int:
+    """K2 on seeded synthetic automata whose buckets all hold P = 16
+    entries and whose rows widen into the sorted compaction and overflow:
+    one table at (32, 32) and (128, 128), then four tables stacked as
+    shards under a [2, 4] grid of probe blocks in one batched call.
+    Returns the max error."""
+    import numpy as np
+    tabs = [workloads.dense_walk_tables(seed) for seed in range(4)]
+
+    def put(a):
+        return torch.from_numpy(np.ascontiguousarray(a)).to(dev)
+
+    def probes_of(ds):
+        f = {k: put(np.stack([d[k] for d in ds]))
+             for k in ("tok_h1", "tok_h2", "lengths", "roots", "sys_mask")}
+        return M.Probes(f["tok_h1"], f["tok_h2"], f["lengths"], f["roots"],
+                        f["sys_mask"], int(f["lengths"].max()))
+    err = 0
+    rt = put(tabs[0]["route_tab"])
+    one = M.DeviceTrie(rt, put(tabs[0]["edge_tab"]), None, None, rt)
+    p1 = probes_of(tabs[:1])
+    p1 = M.Probes(p1.tok_h1[0], p1.tok_h2[0], p1.lengths[0], p1.roots[0],
+                  p1.sys_mask[0], p1.max_len)
+    for k_states, a in ((32, 32), (128, 128)):
+        got, e = k2_hold(torch, K, M, one, p1, k_states, a, 16, "dense")
+        err = max(err, e)
+        if k_states == 32 and not bool(got.overflow.any()):
+            raise AssertionError("the dense walk case made no overflow row")
+    rt = put(np.stack([d["route_tab"] for d in tabs]))
+    stacked = M.DeviceTrie(rt, put(np.stack([d["edge_tab"] for d in tabs])),
+                           None, None, rt)
+    grid = probes_of([tabs[g % 4] for g in range(8)])
+    for k_states, a in ((32, 32), (128, 128)):
+        err = max(err, k2_hold(torch, K, M, stacked, grid, k_states, a, 16,
+                               "dense 2x4")[1])
+    return err
+
+
+def walk_bound_row(torch, M, blocks, probe_len: int, a: int):
+    """Bytes and operations of the walk over ``blocks`` — (trie, probes,
+    shard) triples, 2-D probes each — as this run's data needs them: every
+    route-table row and edge bucket the walk visits, read once per shard,
+    the probe grids read and the results written once."""
+    rows, bkts, n_row_v, n_bkt_v, n = [], [], 0, 0, 0
+    for trie, probes, sh in blocks:
+        visits = {"rows": [], "buckets": []}
+        M._route_walk(trie, probes, probe_len, 32, a, visits=visits)
+        n_row_v += sum(int(v.numel()) for v in visits["rows"])
+        n_bkt_v += sum(int(v.numel()) for v in visits["buckets"])
+        rows.append(torch.cat(visits["rows"]).long() * 64 + sh)
+        bkts.append(torch.cat(visits["buckets"]).long() * 64 + sh)
+        n += probes.tok_h1.shape[0]
+    u_rows = int(torch.unique(torch.cat(rows)).numel())
+    u_bkts = int(torch.unique(torch.cat(bkts)).numel())
+    w = blocks[0][1].tok_h1.shape[1]
+    return dict(bytes=(u_rows * M.RT_COLS * 4 + u_bkts * probe_len * 16
+                       + n * (2 * w * 4 + 4 + 4 + 1) + n * (2 * a * 4 + 4 + 1)),
+                ops=n_bkt_v * probe_len * 4 + n_row_v * 8,
+                unique_rows=u_rows, unique_buckets=u_bkts,
+                row_visits=n_row_v, bucket_visits=n_bkt_v)
+
+
 def check_mesh_batch(M, mm, queries, res, pairs, peer_tab) -> None:
     """One served mesh batch against the host: sampled rows against the
     oracle, every block's buckets against the host bucketing, and the
@@ -480,15 +717,15 @@ def config5_traffic(tries, batch: int, n_batches: int):
 
 
 def serve_mesh_batch(torch, dev, mm, queries):
-    """One checked ``match_batch`` on the mesh: exactly R·S walk
-    launches, one expansion call for the whole grid and (R-1)+(S-1) ring
-    hops, then
+    """One checked ``match_batch`` on the mesh: exactly one walk launch
+    and one expansion call for the whole grid and (R-1)+(S-1) ring hops,
+    then
     :func:`check_mesh_batch`. Returns the batch's summary."""
     from bifromq_tpu_torch.ops import match as M
     from bifromq_tpu_torch.utils import device as D
     r, s = mm.n_replicas, mm.n_shards
     want = {k: 0 for k in D.KERNELS}
-    want.update(fused_walk=r * s, expand_pairs=1,
+    want.update(fused_walk=1, expand_pairs=1,
                 ring_hop=(r - 1) + (s - 1))
     before = {k: v.launches for k, v in D.KERNELS.items()}
     sync(torch, dev)
@@ -515,12 +752,60 @@ def serve_mesh_batch(torch, dev, mm, queries):
             "launches": launched}
 
 
+def k2_mesh(torch, K, M, mm, queries, smi, iters: int = 20) -> None:
+    """K2 on one mesh batch's own ``[R·S, b, W]`` probe grids: the batched
+    launch against the plain walk block by block (exact), then timed as
+    one launch beside 8 per-block launches of the same kernel on the
+    blocks' table and grid views (the summed time of the 8), with the
+    bound of the walk's bytes at this shape."""
+    prep = mm._prepare_probes(queries)
+    edge, child, route = mm._device_trie
+    r, s, b, w = prep.probes.tok_h1.shape
+    g = r * s
+    p = prep.probes
+    grid = M.Probes(p.tok_h1.reshape(g, b, w), p.tok_h2.reshape(g, b, w),
+                    p.lengths.reshape(g, b), p.roots.reshape(g, b),
+                    p.sys_mask.reshape(g, b), p.max_len)
+    trie = M.DeviceTrie(route, edge, child, None, route)
+    a, probe_len = mm.max_intervals, prep.ct.probe_len
+    _, err = k2_hold(torch, K, M, trie, grid, mm.k_states, a, probe_len,
+                     f"mesh {g}x{b}")
+    views = [(M.DeviceTrie(route[i % s], edge[i % s], child[i % s], None,
+                           route[i % s]),
+              M.Probes(grid.tok_h1[i], grid.tok_h2[i], grid.lengths[i],
+                       grid.roots[i], grid.sys_mask[i], grid.max_len), i % s)
+             for i in range(g)]
+    kw = dict(probe_len=probe_len, k_states=mm.k_states, max_intervals=a)
+
+    def one():
+        return K.fused_walk_routes(trie, grid, **kw)
+
+    def per_block():
+        return [K.fused_walk_routes(t, q, **kw) for t, q, _ in views]
+    row = walk_bound_row(torch, M, views, probe_len, a)
+    out = {"phase": "K2-mesh", "shape": [g, b, w], "card": smi,
+           "max_abs_err": err,
+           "one_launch_ms": time_ms(torch, one, iters),
+           "one_launch_device_ms": time_device_ms(torch, one, iters),
+           "per_block_8_ms": time_ms(torch, per_block, iters),
+           "per_block_8_device_ms": time_device_ms(torch, per_block, iters),
+           "plain_ms": time_ms(torch, lambda: K._walk_blocks_plain(
+               trie, grid, **kw), 3, 1),
+           "bound_ms": bound_ms(row), "bound_by": bound_by(row),
+           "unique_rows": row["unique_rows"],
+           "unique_buckets": row["unique_buckets"],
+           "row_visits": row["row_visits"],
+           "bucket_visits": row["bucket_visits"]}
+    print(json.dumps(out), flush=True)
+
+
 def mesh_phase(torch, dev, smi, n_tenants=MESH_TENANTS, total_subs=MESH_SUBS,
                batch=B_SERVE):
     """The mesh path: config 5 on ``make_mesh(*MESH)``, 3 counted
-    checked ``match_batch`` calls, then one batch timed stage by stage and
-    K3 timed on that batch's grids. Returns the launch counts of the
-    counted run and K3's row at the mesh shape."""
+    checked ``match_batch`` calls, then one batch timed stage by stage,
+    and K2 and K3 held against their plain versions and timed on that
+    batch's own grids. Returns the launch counts of the counted run and
+    K3's row at the mesh shape."""
     from bifromq_tpu_torch import workloads
     from bifromq_tpu_torch.models import kernels as K
     from bifromq_tpu_torch.models.oracle import UNCAPPED_FANOUT
@@ -579,6 +864,7 @@ def mesh_phase(torch, dev, smi, n_tenants=MESH_TENANTS, total_subs=MESH_SUBS,
            UNCAPPED_FANOUT, UNCAPPED_FANOUT)
     print(json.dumps({"phase": "mesh-stages", "batch": batch, "card": smi,
                       **stages}), flush=True)
+    k2_mesh(torch, K, M, mm, batches[-1], smi)
     # K3 on this batch's own [R·S, b, A] grids, one call for all blocks
     g = mm.n_replicas * mm.n_shards
     b, a = fl.res.start.shape[-2:]
@@ -658,38 +944,8 @@ def main() -> int:
     rows = {}
 
     # ---- K1: BLAKE2b level hashing ----------------------------------------
-    k1_err, k1 = 0, None
-    for name, topics in (
-            ("probe_topics", ["/".join(t) for t in
-                              workloads.probe_topics(B_CHECK, seed=1)]),
-            ("diverse_topics", workloads.diverse_topics(B_CHECK, seed=0))):
-        tb = TopicBytes.from_topics(topics)
-        lengths, _, _, rows_b, starts, lens = T.pack_topic_bytes(
-            tb, [root] * B_CHECK, max_levels=ct.max_levels, batch=B_CHECK)
-        args = [torch.from_numpy(a).to(dev) for a in
-                (rows_b, starts, lens, lengths.reshape(B_CHECK, 1))]
-        args.append(T.h0_tensor(ct.salt, dev))
-        got = T.blake2b_levels(*args)
-        want = T._hash_lanes(*args)
-        torch.cuda.synchronize()
-        k1_err = max(k1_err, max_abs_err(torch, got, want))
-        if name == "probe_topics":
-            live = int((torch.from_numpy(lengths).clamp(min=0)).sum())
-            b, mb = rows_b.shape
-            w = starts.shape[1]
-            k1 = dict(
-                args=args, live=live,
-                bytes=b * mb + 2 * b * w * 4 + b * 4 + 64 + 2 * b * w * 4,
-                # 12 rounds x 8 G x 14 64-bit ops, 2 32-bit ops each
-                ops=live * 12 * 8 * 14 * 2)
-    if k1_err:
-        return fail(f"K1 blake2b_levels differs from _hash_lanes: {k1_err}")
-    k1["ms"] = time_ms(torch, lambda: T.blake2b_levels(*k1["args"]), 50)
-    k1["plain_ms"] = time_ms(torch, lambda: T._hash_lanes(*k1["args"]), 3, 1)
-    rows["blake2b_levels"] = k1
-    print(json.dumps({"phase": "K1", "max_abs_err": k1_err,
-                      "ms": k1["ms"], "plain_ms": k1["plain_ms"]}),
-          flush=True)
+    k1_err, rows["blake2b_levels"] = k1_phase(torch, T, workloads, TopicBytes,
+                                              ct, root, dev, smi)
 
     # ---- K2: fused interval walk ------------------------------------------
     topics = ["/".join(t) for t in workloads.probe_topics(B_CHECK, seed=1)]
@@ -697,49 +953,28 @@ def main() -> int:
                                   [root] * B_CHECK,
                                   max_levels=ct.max_levels, salt=ct.salt,
                                   batch=B_CHECK, device=dev)
-    k2_err = 0
-    walk32 = None
-    for k_states, a in ((32, 32), (128, 128)):
-        kw = dict(probe_len=ct.probe_len, k_states=k_states,
-                  max_intervals=a)
-        got = K.fused_walk_routes(trie, probes, **kw)
-        want = M.walk_routes(trie, probes, esc_k=0, **kw)
-        torch.cuda.synchronize()
-        fields = ("start", "count", "n_routes", "overflow")
-        err = max_abs_err(torch, [getattr(got, f) for f in fields],
-                          [getattr(want, f) for f in fields])
-        k2_err = max(k2_err, err)
-        print(json.dumps({"phase": "K2", "K": k_states, "A": a,
-                          "max_abs_err": err,
-                          "overflow_rows": int(got.overflow.sum()),
-                          "routes_per_topic":
-                              float(got.n_routes.float().mean())}),
-              flush=True)
-        if k_states == 32:
-            walk32 = got
-    if k2_err:
-        return fail(f"K2 fused_walk_routes differs from walk_routes: {k2_err}")
+    walk32, k2_err = k2_hold(torch, K, M, trie, probes, 32, 32,
+                             ct.probe_len, "config 2")
+    k2_err = max(k2_err, k2_hold(torch, K, M, trie, probes, 128, 128,
+                                 ct.probe_len, "config 2")[1],
+                 k2_dense(torch, K, M, workloads, dev))
     kw = dict(probe_len=ct.probe_len, k_states=32, max_intervals=32)
-    visits = {"rows": [], "buckets": []}
-    M._route_walk(trie, probes, ct.probe_len, 32, 32, visits=visits)
-    n_row_v = sum(int(v.numel()) for v in visits["rows"])
-    n_bkt_v = sum(int(v.numel()) for v in visits["buckets"])
-    u_rows = int(torch.unique(torch.cat(visits["rows"])).numel())
-    u_bkts = int(torch.unique(torch.cat(visits["buckets"])).numel())
-    w = probes.tok_h1.shape[1]
-    rows["fused_walk"] = dict(
-        bytes=(u_rows * M.RT_COLS * 4 + u_bkts * ct.probe_len * 16
-               + B_CHECK * (2 * w * 4 + 4 + 4 + 1)
-               + B_CHECK * (2 * 32 * 4 + 4 + 1)),
-        ops=n_bkt_v * ct.probe_len * 4 + n_row_v * 8,
-        ms=time_ms(torch, lambda: K.fused_walk_routes(trie, probes, **kw),
-                   20),
+    r = walk_bound_row(torch, M, [(trie, probes, 0)], ct.probe_len, 32)
+    r.update(
+        ms=time_ms(torch, lambda: K.fused_walk_routes(trie, probes, **kw), 20),
+        device_ms=time_device_ms(
+            torch, lambda: K.fused_walk_routes(trie, probes, **kw), 20),
         plain_ms=time_ms(torch, lambda: M.walk_routes(
             trie, probes, esc_k=0, **kw), 3, 1))
-    print(json.dumps({"phase": "K2-time", "ms": rows["fused_walk"]["ms"],
-                      "plain_ms": rows["fused_walk"]["plain_ms"],
-                      "unique_rows": u_rows, "unique_buckets": u_bkts}),
-          flush=True)
+    rows["fused_walk"] = r
+    print(json.dumps({"phase": "K2-time", "shape": [B_CHECK], "card": smi,
+                      "ms": r["ms"], "device_ms": r["device_ms"],
+                      "plain_ms": r["plain_ms"], "bound_ms": bound_ms(r),
+                      "bound_by": bound_by(r),
+                      "unique_rows": r["unique_rows"],
+                      "unique_buckets": r["unique_buckets"],
+                      "row_visits": r["row_visits"],
+                      "bucket_visits": r["bucket_visits"]}), flush=True)
 
     # ---- K3: ragged-arange expansion --------------------------------------
     k3_err = k3_adversarial(torch, K, M, dev)
@@ -759,11 +994,19 @@ def main() -> int:
         topics = ["/".join(t) for t in
                   workloads.probe_topics(B_SERVE, seed=100 + s)]
         queries = [("tenant0", t) for t in topics]
+        before = {k: v.launches for k, v in D.KERNELS.items()}
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         res = m.match_batch(queries)
         torch.cuda.synchronize()
         ms = (time.perf_counter() - t0) * 1e3
+        launched = {k: v.launches - before[k] for k, v in D.KERNELS.items()}
+        # the primary walk, and the escalation re-walk when a row overflows
+        if not (launched["blake2b_levels"] == 1
+                and launched["fused_walk"] in (1, 2)
+                and launched["expand_pairs"] == 1
+                and launched["ring_hop"] == 0):
+            return fail(f"serve batch {s} launched {launched}")
         pairs, _ = m.last_expanded
         sample = list(range(0, B_SERVE, B_SERVE // ORACLE_SAMPLE))
         oracle = m.match_from_tries([queries[i] for i in sample])
@@ -775,7 +1018,8 @@ def main() -> int:
         serve.append({"batch_ms": ms, "routes_per_topic": n_routes / B_SERVE,
                       "walk_overflow_rows": int(pairs.res.overflow.sum()),
                       "trunc_rows": int(pairs.trunc[:B_SERVE].sum()),
-                      "oracle_rows_checked": len(sample)})
+                      "oracle_rows_checked": len(sample),
+                      "launches": launched})
     launches = {k: v.launches for k, v in D.KERNELS.items()}
     print(json.dumps({"phase": "serve", "subs": N_SUBS, "batch": B_SERVE,
                       "card": smi, "batches": serve,
@@ -862,8 +1106,7 @@ def main() -> int:
                     "replaces": replaces, "launches": launches[name],
                     "max_abs_err": err, "ms": r["ms"],
                     "plain_ms": r["plain_ms"], "bound_ms": bound_ms(r),
-                    "bound_by": "bytes" if r["bytes"] / HBM_BPS
-                    >= r["ops"] / INT32_OPS else "operations",
+                    "bound_by": bound_by(r),
                     "library_ms": r.get("library_ms")})
     print(json.dumps({"kernels": out}), flush=True)
     print(json.dumps({"ok": True, "device": {

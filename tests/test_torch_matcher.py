@@ -151,6 +151,24 @@ mm = sharded.TorchMeshMatcher.from_tries(
 mq = [(f"tenant{i % 40}", t) for i, t in enumerate(topics)]
 assert [len(r.all_routes()) for r in mm.match_batch(mq)] == \
     [len(r.all_routes()) for r in mm.match_from_tries(mq)]
+# the batched walk over stacked tables and the hash's edge-case batch
+import numpy as np, torch
+from bifromq_tpu_torch.models import kernels
+from bifromq_tpu_torch.models.bytetok import TopicBytes
+from bifromq_tpu_torch.ops import match, tokenize
+ds = [workloads.dense_walk_tables(s, batch=16) for s in range(2)]
+def stack(k):
+    return torch.from_numpy(np.stack([d[k] for d in ds]))
+rt = stack("route_tab")
+g = kernels.fused_walk_routes(
+    match.DeviceTrie(rt, stack("edge_tab"), None, None, rt),
+    match.Probes(stack("tok_h1"), stack("tok_h2"), stack("lengths"),
+                 stack("roots"), stack("sys_mask"), 10), probe_len=16)
+assert g.start.shape == (2, 16, 32)
+_, probes = tokenize.device_tokenize(
+    TopicBytes.from_topics(workloads.hash_edge_topics(24)), [0] * 24,
+    max_levels=16, salt=0, batch=32, device="cpu")
+assert probes.tok_h1.shape == (32, 17)
 assert "jax" not in sys.modules, "jax imported"
 bad = [k for k in sys.modules
        if k == "bifromq_tpu" or k.startswith("bifromq_tpu.")]

@@ -121,3 +121,70 @@ def test_sub_batch_retokenizes_rows():
     for f in ("tok_h1", "tok_h2", "lengths", "roots", "sys_mask"):
         assert (getattr(sub, f) == getattr(host, f)).all(), f
     assert (sub.tok_h1[:2] == probes.tok_h1.numpy()[1:3]).all()
+
+
+# ---- the level hash's edge cases, as the card's check feeds them -----------
+
+@pytest.mark.parametrize("salt", [0, 11])
+def test_hash_edge_topics_equal_level_hash(salt):
+    """``workloads.hash_edge_topics`` (a 128-byte level, empty levels, a
+    row at ``max_levels``, a level ending on the row's last byte, padding
+    rows, ``$`` topics) through ``_hash_lanes`` equals ``level_hash`` level
+    by level and the reference byte plane row by row."""
+    max_levels, mb = 16, ttok.tok_max_bytes()
+    topics = tw.hash_edge_topics(80, max_levels=max_levels, max_bytes=mb,
+                                 seed=salt)
+    mirror, probes = _port_tokenize(topics, salt, 96, max_levels=max_levels)
+    h1, h2 = probes.tok_h1.numpy(), probes.tok_h2.numpy()
+    for i, t in enumerate(topics):
+        levels = t.split("/")
+        if mirror.lengths[i] < 0:
+            assert (h1[i] == 0).all() and (h2[i] == 0).all()
+            continue
+        assert mirror.lengths[i] == len(levels)
+        assert mirror.sys_mask[i] == t.startswith("$")
+        for j, lvl in enumerate(levels):
+            assert (h1[i, j], h2[i, j]) == level_hash(lvl, salt), (t, j)
+        assert (h1[i, len(levels):] == 0).all()
+    assert (h1[80:] == 0).all() and (mirror.lengths[80:] == -1).all()
+    ref = jbt.tokenize_bytes(jbt.TopicBytes.from_topics(topics), [0] * 80,
+                             max_levels=max_levels, salt=salt, batch=96)
+    ok = mirror.lengths >= 0    # the host plane also hashes the padded rows
+    assert (ref[2][ok] == mirror.lengths[ok]).all()
+    assert (ref[0][ok] == h1[ok]).all() and (ref[1][ok] == h2[ok]).all()
+    # each edge the batch promises is there, hashed or padded as it should
+    by_topic = dict(zip(topics, mirror.lengths))
+    assert by_topic["q" * 128 + "/a"] == 2
+    assert by_topic["z" * 129] == -1
+    assert by_topic["a//b"] == 3
+    assert by_topic["/".join(["l"] * max_levels)] == max_levels
+    assert by_topic["/".join(["l"] * (max_levels + 1))] == -1
+    assert by_topic["p" * (mb + 1)] == -1
+    last = [t for t in topics if len(t.encode()) == mb and t.endswith("y")]
+    assert last and by_topic[last[0]] > 0
+    assert mirror.sys_mask[topics.index("$SYS/health/cpu")]
+
+
+def test_plain_hash_clamps_like_reference():
+    """Level boundaries outside the row (starts below 0 or past the row,
+    lengths past the row's end, negative lengths) clamp each byte position
+    to the row's ends in the reference's lax leg; ``_hash_lanes``, which
+    the card's kernel is held to on the same kind of input, agrees."""
+    rng = np.random.default_rng(4)
+    b, mb, w = 6, 64, 5
+    rows = rng.integers(0, 256, (b, mb)).astype(np.uint8)
+    starts = rng.integers(-9, mb + 9, (b, w)).astype(np.int32)
+    lens = rng.integers(-3, 141, (b, w)).astype(np.int32)
+    nlv = np.array([[5], [3], [0], [-1], [5], [2]], dtype=np.int32)
+    h0 = jbt.blake2b8_h0(13)
+    with jax.disable_jit():
+        ref = jtok._hash_lanes(
+            rows, starts, lens, nlv,
+            (h0 & np.uint64(0xFFFFFFFF)).astype(np.uint32).reshape(1, 8),
+            (h0 >> np.uint64(32)).astype(np.uint32).reshape(1, 8))
+        ref = [np.asarray(x) for x in ref]
+    got = ttok._hash_lanes(*(torch.from_numpy(a) for a in
+                             (rows, starts, lens, nlv)),
+                           ttok.h0_tensor(13, "cpu"))
+    assert all((g.numpy() == r).all() for g, r in zip(got, ref))
+    assert (ref[0][:2] != 0).any()

@@ -168,3 +168,107 @@ def test_bitonic_matches_sort():
                                       dtype=np.int32))
     assert torch.equal(tm._bitonic_desc(x)[:, :12],
                        torch.sort(x, dim=1, descending=True).values)
+
+
+# ---- the batched [G, B, W] walk and the mesh's one launch ------------------
+
+def _dense_trie(ds):
+    """Stacked ``[S, ...]`` port tables of ``dense_walk_tables`` dicts."""
+    route = torch.from_numpy(np.stack([d["route_tab"] for d in ds]))
+    return tm.DeviceTrie(route, torch.from_numpy(np.stack(
+        [d["edge_tab"] for d in ds])), None, None, route)
+
+
+def _dense_probes(ds):
+    f = {k: torch.from_numpy(np.stack([d[k] for d in ds]))
+         for k in ("tok_h1", "tok_h2", "lengths", "roots", "sys_mask")}
+    return tm.Probes(f["tok_h1"], f["tok_h2"], f["lengths"], f["roots"],
+                     f["sys_mask"], int(f["lengths"].max()))
+
+
+def test_dense_walk_tables_fill_buckets_and_overflow():
+    """The synthetic walk input the card's check uses: every bucket holds
+    P = 16 entries, and at K = A = 32 rows reach the sorted compaction and
+    both overflows; the port's plain walk equals the reference's lax walk
+    on it."""
+    d = tw.dense_walk_tables(0, batch=64)
+    assert (d["edge_tab"][..., 0] >= 0).all()
+    kw = dict(probe_len=16, k_states=32, max_intervals=32)
+    probes = _dense_probes([d])
+    one = tm.Probes(*(x[0] for x in (probes.tok_h1, probes.tok_h2,
+                                     probes.lengths, probes.roots,
+                                     probes.sys_mask)), probes.max_len)
+    route = torch.from_numpy(d["route_tab"])
+    got = tk.fused_walk_routes(
+        tm.DeviceTrie(route, torch.from_numpy(d["edge_tab"]), None, None,
+                      route), one, **kw)
+    ref = jm.walk_routes(
+        jm.DeviceTrie(d["route_tab"], d["edge_tab"], np.zeros(1, np.int32),
+                      None, d["route_tab"]),
+        jm.Probes(d["tok_h1"], d["tok_h2"], d["lengths"], d["roots"],
+                  d["sys_mask"]), esc_k=0, **kw)
+    _assert_equal(ref, got, "dense tables")
+    assert got.overflow.any() and not got.overflow.all()
+    assert (d["lengths"] > 5).sum() > 4       # rows past 2^5 = K states
+
+
+@pytest.mark.parametrize("shape", [(1, 3), (2, 4)],
+                         ids=lambda s: f"{s[0]}x{s[1]}")
+@pytest.mark.parametrize("k,a", [(32, 32), (8, 4)])
+def test_batched_walk_equals_per_block_loop(shape, k, a):
+    """``fused_walk_routes`` on ``[G, B, W]`` probes over stacked shard
+    tables equals the walk called block by block on the table and grid
+    views, block g on shard g % S, element for element."""
+    r, s = shape
+    tabs = [tw.dense_walk_tables(seed, batch=48) for seed in range(s)]
+    trie = _dense_trie(tabs)
+    # block g probes its own shard's tokens, rows rotated per replica
+    grid = _dense_probes([{k: np.roll(v, 7 * g, axis=0)
+                           for k, v in tabs[g % s].items()}
+                          for g in range(r * s)])
+    kw = dict(probe_len=16, k_states=k, max_intervals=a)
+    got = tk.fused_walk_routes(trie, grid, **kw)
+    for g in range(r * s):
+        view = tm.DeviceTrie(trie.route_tab[g % s], trie.edge_tab[g % s],
+                             None, None, trie.route_tab[g % s])
+        want = tk.fused_walk_routes(view, tm.Probes(
+            grid.tok_h1[g], grid.tok_h2[g], grid.lengths[g], grid.roots[g],
+            grid.sys_mask[g], grid.max_len), **kw)
+        for f in FIELDS:
+            assert torch.equal(getattr(got, f)[g], getattr(want, f)), (g, f)
+    assert got.overflow.any()
+
+
+@pytest.mark.parametrize("shape", [(2, 4), (1, 3)],
+                         ids=lambda s: f"{s[0]}x{s[1]}")
+def test_mesh_walk_equals_reference_mesh_step(shape):
+    """``parallel.sharded.mesh_walk`` (one walk call for every block)
+    equals the reference's shard_map match step on the 8 CPU devices,
+    on the same stacked tables and probe grids."""
+    from bifromq_tpu.parallel import sharded as js
+    from bifromq_tpu_torch.parallel import sharded as ts
+    r, s = shape
+    tries = tw.config_multi_tenant(n_tenants=12, total_subs=600, seed=0)
+    mm = ts.TorchMeshMatcher(tries, mesh=ts.make_mesh(r, s, device="cpu"),
+                             k_states=16, auto_compact=False)
+    tenants = sorted(tries)
+    topics = ["/".join(t) for t in tw.probe_topics(64, seed=1)]
+    queries = [(tenants[i % len(tenants)], t) for i, t in enumerate(topics)]
+    for tenant in tenants:
+        for route in list(tries[tenant].routes())[:4]:
+            queries.append((tenant, "/".join(
+                "l0" if lv == "+" else lv
+                for lv in route.matcher.filter_levels if lv != "#")))
+    queries.append(("tenant0", "$SYS/l0"))
+    prep = mm._prepare_probes(queries)
+    kw = dict(probe_len=16, k_states=16, max_intervals=32)
+    got = ts.mesh_walk(mm._device_trie, prep.probes, **kw)
+    step = js.make_match_step(js.make_mesh(r, s), merge_total=False, **kw)
+    tables = prep.ct
+    p = prep.probes
+    ref = step(tables.edge_tab, tables.child_list, tables.route_tab,
+               *(x.numpy() for x in (p.tok_h1, p.tok_h2, p.lengths,
+                                     p.roots, p.sys_mask)))
+    for f, want in zip(FIELDS, ref):
+        assert np.array_equal(getattr(got, f).numpy(), np.asarray(want)), f
+    assert int(got.n_routes.sum()) > 20
