@@ -25,17 +25,24 @@
 // ~0.0044 ms of ALU work against ~0.003 ms for its ~8.7 MB of bytes.
 //
 // What the design does about it: only live lanes run the rounds. A block
-// takes a tile of 32 rows, scans their level counts in shared memory and
-// maps its threads densely onto the tile's live lanes, so no warp carries
-// a dead lane through the rounds; the tile's dead lanes, and every lane of
-// a padding row, get zeros through coalesced stores. The tile's row bytes
-// are staged in shared memory once, with 16-byte loads, and each lane
-// builds its 16 message words from there as 8-byte words joined by a
-// funnel shift where the level starts unaligned, masked at `lens`. The
-// 16-word state stays in native uint64_t registers (the reference's (lo,
-// hi) uint32 emulation was a TPU workaround) and the 12 rounds are written
-// out with literal message indices, so the message block never leaves
-// registers.
+// takes a tile of up to 32 rows, scans their level counts in shared
+// memory and maps its threads densely onto the tile's live lanes, so no
+// warp carries a dead lane through the rounds; the tile's dead lanes, and
+// every lane of a padding row, get zeros through coalesced stores. The
+// tile's row bytes are staged in shared memory once, with 16-byte loads,
+// and each lane builds its 16 message words from there as 8-byte words
+// joined by a funnel shift where the level starts unaligned, masked at
+// `lens`. The 16-word state stays in native uint64_t registers (the
+// reference's (lo, hi) uint32 emulation was a TPU workaround) and the 12
+// rounds are written out with literal message indices, so the message
+// block never leaves registers.
+//
+// Row width: any mb up to MQTT's 65,535-byte topic limit. A tile holds 32
+// rows while their bytes fit the default 48 KB of shared memory (mb up to
+// 1,520); wider rows opt in to Hopper's larger dynamic shared memory (up
+// to 227 KB a block) and, once 32 rows do not fit even that, the tile
+// holds fewer rows (3 at mb = 65,535). Lane order and values do not
+// depend on the tile.
 
 #include <cstdint>
 #include <cuda_runtime.h>
@@ -71,21 +78,24 @@ __device__ __forceinline__ uint64_t rotr64(uint64_t x, int n) {
     G(v3, v4, v9, v14, m[s14], m[s15]);                                   \
   } while (0)
 
-constexpr int TILE_ROWS = 32;
+constexpr int TILE_ROWS = 32;  // at most; fewer for wide rows
 constexpr int THREADS = 128;
+constexpr int DEFAULT_SMEM = 48 * 1024;
+// Hopper's 227 KB a block, less 1 KB for the static lane scan and slack
+constexpr int MAX_SMEM = 227 * 1024 - 1024;
 
 __global__ void __launch_bounds__(THREADS) blake2b_levels_kernel(
     const uint8_t* __restrict__ rows, const int32_t* __restrict__ starts,
     const int32_t* __restrict__ lens, const int32_t* __restrict__ nlv,
     const uint64_t* __restrict__ h0, int32_t* __restrict__ h1,
-    int32_t* __restrict__ h2, int b, int mb, int w, int stride) {
+    int32_t* __restrict__ h2, int b, int mb, int w, int stride, int tile) {
   // the tile's row bytes, `stride` (mb rounded up to 16) apart, plus 16
   // bytes of slack for the last row's trailing 8-byte word reads
   extern __shared__ __align__(16) uint8_t sbytes[];
   __shared__ int lane_off[TILE_ROWS + 1];  // exclusive scan of live lanes
   const int tid = threadIdx.x;
-  const int r0 = blockIdx.x * TILE_ROWS;
-  const int tile_rows = min(TILE_ROWS, b - r0);
+  const int r0 = blockIdx.x * tile;
+  const int tile_rows = min(tile, b - r0);
 
   // 1. live lanes per row (lanes < nlv, at most w; none for padding rows),
   //    scanned by warp 0
@@ -220,15 +230,26 @@ extern "C" int blake2b_levels(const void* rows, const void* starts,
                               const void* lens, const void* nlv,
                               const void* h0, void* h1, void* h2, int b,
                               int mb, int w, void* stream) {
-  const int stride = (mb + 15) & ~15;
-  const size_t smem = (size_t)TILE_ROWS * stride + 16;
-  if (b < 1 || mb < 1 || w < 1 || smem > 48 * 1024)
+  if (b < 1 || mb < 1 || w < 1 || mb > MAX_SMEM - 32)
     return (int)cudaErrorInvalidValue;
-  const int blocks = (b + TILE_ROWS - 1) / TILE_ROWS;
+  const int stride = (mb + 15) & ~15;
+  // 32 rows where they fit the default 48 KB, else as many as fit the
+  // opt-in maximum (at least one)
+  int tile = TILE_ROWS;
+  if (tile * stride + 16 > DEFAULT_SMEM)
+    tile = min(TILE_ROWS, (MAX_SMEM - 16) / stride);
+  const int smem = tile * stride + 16;
+  if (smem > DEFAULT_SMEM) {
+    const cudaError_t e = cudaFuncSetAttribute(
+        blake2b_levels_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        smem);
+    if (e != cudaSuccess) return (int)e;
+  }
+  const int blocks = (b + tile - 1) / tile;
   blake2b_levels_kernel<<<blocks, THREADS, smem, (cudaStream_t)stream>>>(
       (const uint8_t*)rows, (const int32_t*)starts, (const int32_t*)lens,
       (const int32_t*)nlv, (const uint64_t*)h0, (int32_t*)h1, (int32_t*)h2,
-      b, mb, w, stride);
+      b, mb, w, stride, tile);
   return (int)cudaGetLastError();
 }
 

@@ -18,11 +18,17 @@
 //     edge table, max child over the hits) and its '+' child; the
 //     candidates are [exact lanes | plus lanes]. While 2*cap <= K they are
 //     kept unsorted (cap doubles); once 2*cap > K they are sorted
-//     descending, the first K kept, and the row overflows if more than K
-//     were live.
+//     descending, the first K kept (cap = K), and the row overflows if
+//     more than K were live. K need not be a power of two: a width cap
+//     with K/2 < cap < K sorts its 2*cap candidates down to K.
 //   The first A kept intervals fill the [A] start/count lanes (zeros
 //   after); n_routes sums every emitted count, kept or not; the row also
 //   overflows if more than A intervals were emitted.
+// K and A are run-time arguments, so every budget the reference accepts
+// is served: K in [1, 256], any A >= 1. The kernel is instantiated on the
+// capacity KC (32, 64, 128 or 256), the power of two >= 32 that holds K:
+// it sizes the per-warp shared buffers and the states a lane carries,
+// and lanes past K stay empty.
 // Steps past a row's own length emit and advance nothing in the
 // reference, so each row stops at its own length. Rows come as a [G, B]
 // grid: block g walks the stacked tables of shard g % S (the mesh's
@@ -79,23 +85,23 @@ __device__ __forceinline__ uint32_t mix_u32(uint32_t node, uint32_t h1,
   return x;
 }
 
-template <int K, int A, int P>
+template <int KC, int P>
 __global__ void __launch_bounds__(32 * WARPS) fused_walk_kernel(
     const int4* __restrict__ edge_all, uint32_t mask, int64_t edge_stride,
     const int4* __restrict__ route_all, int64_t route_stride, int n_shards,
     int w, const int32_t* __restrict__ tok_h1,
     const int32_t* __restrict__ tok_h2, const int32_t* __restrict__ lengths,
     const int32_t* __restrict__ roots, const uint8_t* __restrict__ sys_mask,
-    int b, int64_t total, int32_t* __restrict__ ivl_s,
+    int b, int64_t total, int k, int a, int32_t* __restrict__ ivl_s,
     int32_t* __restrict__ ivl_c, int32_t* __restrict__ n_routes,
     uint8_t* __restrict__ overflow) {
-  static_assert(K >= 32 && (K & (K - 1)) == 0, "K: power of two >= 32");
+  static_assert(KC >= 32 && (KC & (KC - 1)) == 0, "KC: power of two >= 32");
   static_assert(P == 16, "a bucket is one half-warp's int4 loads");
-  constexpr int S = K / 32;  // active states per lane; state l = s*32 + t
-  __shared__ int cand_buf[WARPS][2 * K];
-  __shared__ int next_buf[WARPS][K];
-  __shared__ int list_buf[WARPS][K];   // the level's live states, compacted
-  __shared__ int child_buf[WARPS][K];  // their literal children, same order
+  constexpr int S = KC / 32;  // state slots per lane; state l = s*32 + t
+  __shared__ int cand_buf[WARPS][2 * KC];
+  __shared__ int next_buf[WARPS][KC];
+  __shared__ int list_buf[WARPS][KC];   // the level's live states, compacted
+  __shared__ int child_buf[WARPS][KC];  // their literal children, same order
   const int warp = threadIdx.x >> 5;
   const int t = threadIdx.x & 31;
   const int64_t row = (int64_t)blockIdx.x * WARPS + warp;
@@ -110,8 +116,8 @@ __global__ void __launch_bounds__(32 * WARPS) fused_walk_kernel(
   const unsigned below = (1u << t) - 1u;
   const int half = t >> 4;  // which of the two states a lane probes
   const int ent_i = t & 15;
-  int32_t* out_s = ivl_s + row * A;
-  int32_t* out_c = ivl_c + row * A;
+  int32_t* out_s = ivl_s + row * a;
+  int32_t* out_c = ivl_c + row * a;
   const int len = lengths[row];
   const bool sys = sys_mask[row] != 0;
   // the row's tokens, lane i holding level i (levels past 32 load per step)
@@ -132,7 +138,7 @@ __global__ void __launch_bounds__(32 * WARPS) fused_walk_kernel(
     const bool keep = c > 0;
     const unsigned m = __ballot_sync(FULL, keep);
     const int pos = n_ivl + __popc(m & below);
-    if (keep && pos < A) {
+    if (keep && pos < a) {
       out_s[pos] = st;
       out_c[pos] = c;
     }
@@ -224,7 +230,7 @@ __global__ void __launch_bounds__(32 * WARPS) fused_walk_kernel(
     for (int s = 0; s < S; ++s)
       plus[s] = act[s] >= 0 && allow_wc ? rec[s].x : -1;
 
-    if (2 * cap <= K) {
+    if (2 * cap <= k) {
       // widening prefix: new lanes are [exact 0..cap | plus 0..cap], unsorted
 #pragma unroll
       for (int s = 0; s < S; ++s) {
@@ -243,39 +249,42 @@ __global__ void __launch_bounds__(32 * WARPS) fused_walk_kernel(
       }
       __syncwarp();
     } else {
-      // cap == K: keep the K largest of the 2K candidates, descending
+      // keep the K largest of the 2*cap candidates, descending; lanes at
+      // or past cap are empty, so all KC lanes of both halves go in
 #pragma unroll
       for (int s = 0; s < S; ++s) {
         cand[s * 32 + t] = exact[s];
-        cand[K + s * 32 + t] = plus[s];
+        cand[KC + s * 32 + t] = plus[s];
       }
       __syncwarp();
       int n_live = 0;
 #pragma unroll
       for (int c = 0; c < 2 * S; ++c)
         n_live += __popc(__ballot_sync(FULL, cand[c * 32 + t] >= 0));
-      ovf |= n_live > K;
+      ovf |= n_live > k;
 #pragma unroll
       for (int c = 0; c < 2 * S; ++c) {
         const int q = c * 32 + t;
         const int v = cand[q];
         if (v >= 0) {
           int r = 0;
-          for (int u = 0; u < 2 * K; ++u) {
+          for (int u = 0; u < 2 * KC; ++u) {
             const int x = cand[u];
             r += (x > v) || (x == v && u < q);
           }
-          if (r < K) nxt[r] = v;
+          if (r < k) nxt[r] = v;
         }
       }
+      const int kept = min(n_live, k);
 #pragma unroll
       for (int s = 0; s < S; ++s) {
         const int l = s * 32 + t;
-        if (l >= n_live) nxt[l] = -1;
+        if (l >= kept) nxt[l] = -1;
       }
       __syncwarp();
 #pragma unroll
       for (int s = 0; s < S; ++s) act[s] = nxt[s * 32 + t];
+      cap = k;
       __syncwarp();
     }
   }
@@ -283,20 +292,20 @@ __global__ void __launch_bounds__(32 * WARPS) fused_walk_kernel(
 #pragma unroll
   for (int off = 16; off > 0; off >>= 1)
     routes += __shfl_xor_sync(FULL, routes, off);
-  for (int pos = min(n_ivl, A) + t; pos < A; pos += 32) {
+  for (int pos = min(n_ivl, a) + t; pos < a; pos += 32) {
     out_s[pos] = 0;
     out_c[pos] = 0;
   }
   if (t == 0) {
     n_routes[row] = routes;
-    overflow[row] = (ovf || n_ivl > A) ? 1 : 0;
+    overflow[row] = (ovf || n_ivl > a) ? 1 : 0;
   }
 }
 
 }  // namespace
 
 // g blocks of b rows each; the tables are [s, nb, p, 4] and [s, n, 8]
-// int32 stacks, block gi reading shard gi % s.
+// int32 stacks, block gi reading shard gi % s; 1 <= k <= 256, a >= 1.
 extern "C" int fused_walk(const void* edge, const void* route, int s, int nb,
                           int p, int n, int w, const void* tok_h1,
                           const void* tok_h2, const void* lengths,
@@ -304,7 +313,8 @@ extern "C" int fused_walk(const void* edge, const void* route, int s, int nb,
                           int b, int k, void* ivl_s, void* ivl_c,
                           void* n_routes, void* overflow, int a,
                           void* stream) {
-  if (p != 16 || s < 1 || g < 1 || b < 1) return (int)cudaErrorInvalidValue;
+  if (p != 16 || s < 1 || g < 1 || b < 1 || k < 1 || k > 256 || a < 1)
+    return (int)cudaErrorInvalidValue;
   const int64_t total = (int64_t)g * b;
   const dim3 grid((unsigned)((total + WARPS - 1) / WARPS));
   const dim3 block(32 * WARPS);
@@ -312,23 +322,21 @@ extern "C" int fused_walk(const void* edge, const void* route, int s, int nb,
   const int64_t edge_stride = (int64_t)nb * p;  // int4 entries per shard
   const int64_t route_stride = (int64_t)n * 2;  // int4 pairs per shard
   cudaStream_t st = (cudaStream_t)stream;
-#define FUSED_WALK_LAUNCH(K_, A_)                                           \
-  fused_walk_kernel<K_, A_, 16><<<grid, block, 0, st>>>(                   \
+#define FUSED_WALK_LAUNCH(KC_)                                              \
+  fused_walk_kernel<KC_, 16><<<grid, block, 0, st>>>(                      \
       (const int4*)edge, mask, edge_stride, (const int4*)route,            \
       route_stride, s, w, (const int32_t*)tok_h1, (const int32_t*)tok_h2,  \
       (const int32_t*)lengths, (const int32_t*)roots,                      \
-      (const uint8_t*)sys_mask, b, total, (int32_t*)ivl_s,                 \
+      (const uint8_t*)sys_mask, b, total, k, a, (int32_t*)ivl_s,           \
       (int32_t*)ivl_c, (int32_t*)n_routes, (uint8_t*)overflow)
-  if (k == 32 && a == 32) {
-    FUSED_WALK_LAUNCH(32, 32);
-  } else if (k == 32 && a == 128) {
-    FUSED_WALK_LAUNCH(32, 128);
-  } else if (k == 128 && a == 32) {
-    FUSED_WALK_LAUNCH(128, 32);
-  } else if (k == 128 && a == 128) {
-    FUSED_WALK_LAUNCH(128, 128);
+  if (k <= 32) {
+    FUSED_WALK_LAUNCH(32);
+  } else if (k <= 64) {
+    FUSED_WALK_LAUNCH(64);
+  } else if (k <= 128) {
+    FUSED_WALK_LAUNCH(128);
   } else {
-    return (int)cudaErrorInvalidValue;
+    FUSED_WALK_LAUNCH(256);
   }
 #undef FUSED_WALK_LAUNCH
   return (int)cudaGetLastError();

@@ -1,5 +1,5 @@
 """Level-packed trie automaton: the host-side compiler for the device walk
-(copy of the compile and probe-tokenization parts of
+(copy of the compile, in-place patching and probe-tokenization parts of
 ``bifromq_tpu/models/automaton.py``).
 
 The whole multi-tenant route table compiles into flat int32 tables that
@@ -30,13 +30,18 @@ Table layout (all int32):
 Level strings are hashed to 64 bits (two int32 lanes) with BLAKE2b + salt; the
 compiler detects the same-parent collision and recompiles with a new salt,
 so device matches are exact, not probabilistic.
+
+:class:`PatchableTrie` lets the same arenas take mutations in place (see
+the section comment above it). The reference's replication half of it
+(``PatchPlan``, ``begin_plan``, ``take_plan``, ``apply_plan``) is not
+copied, and its env knobs are module constants here.
 """
 
 from __future__ import annotations
 
 import hashlib
 from dataclasses import dataclass
-from typing import Dict, List, Optional, Sequence, Tuple, Union
+from typing import Dict, List, Optional, Sequence, Set, Tuple, Union
 
 import numpy as np
 
@@ -127,6 +132,11 @@ class CompiledTrie:
     SLOT_NORMAL = 0
     SLOT_PERSISTENT = 1
     SLOT_GROUP = 2
+    # a tombstoned route slot: the walk still emits it inside its node's
+    # interval (device tables are patched narrowly, never re-packed per
+    # mutation); host expansion filters it out. Reclaimed only by
+    # compaction.
+    SLOT_DEAD = 3
 
     @property
     def slot_kind(self) -> np.ndarray:
@@ -351,6 +361,510 @@ def _build_edge_table(edges: List[Tuple[int, int, int, int]],
             tab[sb, slots] = earr[order]
             return tab
         nb *= 2
+
+
+# ------------------------ in-place patching --------------------------------
+#
+# PatchableTrie restructures the layout above for in-place delta patching:
+# trie mutations become row-level writes into the flat arenas.
+#
+# - **node arena with growth headroom**: node_tab is allocated at a
+#   power-of-2 row capacity above the live count; new nodes are appended
+#   at ``n_live``. Exhausting the headroom doubles the arena (one full
+#   re-upload of the node tables) — never a trie recompile.
+# - **edge inserts into bucket slack**: the single-choice bucketed hash
+#   table already carries ≥2x slack (load ≤ 0.5 at build); a new literal
+#   edge drops into the first empty entry of its mix1 bucket. A full
+#   bucket regrows the edge table from its own live entries (vectorized
+#   ``_build_edge_table`` re-insert — O(E) numpy, no DFS).
+# - **tombstoned route slots**: the matching-slot arena is append-only.
+#   Removing a route marks its slot SLOT_DEAD (zero device traffic — the
+#   walk keeps emitting the interval, host expansion filters); adding a
+#   route to a node whose slot interval is not at the arena tail
+#   RELOCATES the node's live slots to the tail (the old copies become
+#   garbage but stay readable, so a batch dispatched against the old
+#   interval still expands exactly).
+# - **folded-column maintenance**: a '#'-child's (route_start, route_count)
+#   is denormalized into its parent record (NODE_HRCOUNT/NODE_HRSTART);
+#   the patcher tracks parents and re-folds on every interval change.
+#
+# Columns only the retained-mode walk reads (NODE_SUB_END,
+# NODE_SUB_RCOUNT, NODE_SYS_*, NODE_CSTART runs) are NOT maintained: the
+# match walk never reads them. Compaction (a full compile) runs when
+# dead + garbage slots cross PATCH_FRAG_RATIO of the arena.
+
+# the reference's BIFROMQ_PATCH_HEADROOM / _FRAG_RATIO / _FRAG_FLOOR
+# defaults, as constants: the arenas must be byte-identical to the
+# reference's
+PATCH_HEADROOM = 0.125    # minimum spare-row fraction of the node arena
+PATCH_FRAG_RATIO = 0.25   # dead+garbage slot fraction that compacts
+PATCH_FRAG_FLOOR = 64     # ... once at least this many slots are waste
+
+
+class PatchFallback(RuntimeError):
+    """A mutation this patcher cannot express in place — the caller falls
+    back to the delta-overlay path (and typically schedules a compaction)."""
+
+
+def _next_pow2(n: int, floor: int = 1) -> int:
+    p = max(1, floor)
+    while p < n:
+        p *= 2
+    return p
+
+
+class PatchableTrie(CompiledTrie):
+    """A CompiledTrie whose arenas accept in-place delta patches.
+
+    Host numpy arrays are authoritative for patches; dirty row/bucket ids
+    accumulate in ``_dirty_nodes``/``_dirty_edges`` (or ``_full`` after a
+    reshape) and are drained by ``ops.match.patch_device_trie`` into
+    narrow device row writes. Serving correctness contract:
+
+    - A patched arena is exact: base walk + host dead-slot filtering
+      equals a match against the authoritative tries, with NO overlay.
+    - In-flight snapshot safety: patches are append-only with respect to
+      already-dispatched intervals — a relocation leaves the old slot
+      copies live (garbage, not dead), so an expansion running against a
+      pre-patch walk result still yields the pre-patch route set.
+    """
+
+    def __init__(self, ct: CompiledTrie) -> None:
+        n = int(ct.node_tab.shape[0])
+        cap = _next_pow2(max(n + 1, int(n * (1.0 + PATCH_HEADROOM))),
+                         floor=16)
+        node_tab = np.full((cap, NODE_COLS), _EMPTY, dtype=np.int32)
+        node_tab[:n] = ct.node_tab
+        # child_list gets the same pow2-floor padding as the node arena;
+        # the CSR runs only ever index real entries
+        ncl = int(ct.child_list.shape[0])
+        clcap = _next_pow2(max(ncl, 1), floor=16)
+        child_list = ct.child_list
+        if clcap != ncl:
+            child_list = np.full(clcap, _EMPTY, dtype=np.int32)
+            child_list[:ncl] = ct.child_list
+        super().__init__(node_tab=node_tab, edge_tab=ct.edge_tab,
+                         child_list=child_list, matchings=ct.matchings,
+                         tenant_root=ct.tenant_root, salt=ct.salt,
+                         probe_len=ct.probe_len, max_levels=ct.max_levels)
+        self.n_live = n
+        self._init_runtime(ct.slot_kind, ct.matchings_arr)
+
+    @classmethod
+    def from_arenas(cls, *, node_tab: np.ndarray, n_live: int,
+                    edge_tab: np.ndarray, child_list: np.ndarray,
+                    matchings: List[Matching], slot_kind: np.ndarray,
+                    tenant_root: Dict[str, int], salt: int, probe_len: int,
+                    max_levels: int, dead_slots: int = 0,
+                    garbage_slots: int = 0) -> "PatchableTrie":
+        """Rebuild a PatchableTrie from given host arenas — capacity
+        padding, patch-era node order and dead slots included — with no
+        trie DFS and no recompile."""
+        self = cls.__new__(cls)
+        CompiledTrie.__init__(
+            self, node_tab=node_tab, edge_tab=edge_tab,
+            child_list=child_list, matchings=list(matchings),
+            tenant_root=dict(tenant_root), salt=salt, probe_len=probe_len,
+            max_levels=max_levels)
+        self.n_live = int(n_live)
+        s = len(self.matchings)
+        marr = np.empty(max(s, 1), dtype=object)
+        for i, m in enumerate(self.matchings):
+            marr[i] = m
+        self._init_runtime(np.asarray(slot_kind, dtype=np.int8), marr[:s])
+        self.dead_slots = int(dead_slots)
+        self.garbage_slots = int(garbage_slots)
+        return self
+
+    def _init_runtime(self, kind_src: np.ndarray, marr_src) -> None:
+        """The non-arena half of construction, shared by ``__init__`` and
+        ``from_arenas``."""
+        n, cap = self.n_live, int(self.node_tab.shape[0])
+        # parent links (vectorized from the edge table + wildcard columns)
+        # so interval changes can re-fold the '#'-child columns upward
+        parent = np.full(cap, _EMPTY, dtype=np.int32)
+        ids = np.arange(n, dtype=np.int32)
+        for col in (NODE_PLUS, NODE_HASH):
+            c = self.node_tab[:n, col]
+            m = c >= 0
+            parent[c[m]] = ids[m]
+        entries = self.edge_tab.reshape(-1, 4)
+        live = entries[:, 0] >= 0
+        parent[entries[live, 3]] = entries[live, 0]
+        self.parent = parent
+        # slot arena mirrors with capacity (the CompiledTrie cached-array
+        # properties are O(S) per length change — unusable per mutation)
+        s = len(self.matchings)
+        scap = _next_pow2(max(s + 1, 64))
+        kind = np.full(scap, CompiledTrie.SLOT_NORMAL, dtype=np.int8)
+        marr = np.empty(scap, dtype=object)
+        if s:
+            kind[:s] = kind_src
+            marr[:s] = marr_src
+        self._kind = kind
+        self._marr = marr
+        # fragmentation accounting (the compaction trigger)
+        self.dead_slots = 0      # tombstoned, still inside a live interval
+        self.garbage_slots = 0   # relocated-away copies, unreachable
+        self.relocations = 0
+        self.patched_ops = 0
+        self.edge_regrows = 0
+        self.node_grows = 0
+        # dirty tracking drained by the device patch flush
+        self._dirty_nodes: Set[int] = set()
+        self._dirty_edges: Set[int] = set()
+        self._full: Set[str] = set()
+        self._pending_ops = 0
+        # level strings of PATCH-inserted edges, keyed (parent, h1, h2):
+        # the compiler re-salts on a same-parent 64-bit hash collision;
+        # the patcher cannot, so a colliding hit among patch-era edges
+        # raises PatchFallback (the op serves from the overlay, and the
+        # next compaction re-salts). A new level colliding with a BASE
+        # edge (whose string the compiled table no longer carries) is
+        # undetectable here — ~2^-64 per new sibling pair — until the
+        # next compaction sees both strings under one parent.
+        self._edge_level: Dict[Tuple[int, int, int], str] = {}
+
+    # CompiledTrie caches these as O(S)-rebuilt arrays keyed on list
+    # length; the patchable form maintains them incrementally instead.
+    @property
+    def slot_kind(self) -> np.ndarray:
+        return self._kind[:len(self.matchings)]
+
+    @property
+    def matchings_arr(self) -> np.ndarray:
+        return self._marr[:len(self.matchings)]
+
+    # ---------------- dirty bookkeeping ------------------------------------
+
+    @property
+    def dirty(self) -> bool:
+        return bool(self._full or self._dirty_nodes or self._dirty_edges)
+
+    def frag_ratio(self) -> float:
+        return (self.dead_slots + self.garbage_slots) \
+            / max(1, len(self.matchings))
+
+    def frag_pending(self) -> bool:
+        dead = self.dead_slots + self.garbage_slots
+        return dead >= PATCH_FRAG_FLOOR \
+            and self.frag_ratio() >= PATCH_FRAG_RATIO
+
+    def restore_dirty(self, ops: int) -> None:
+        """A device flush failed AFTER draining: the drained row ids are
+        gone and some tables may be half written, so mark BOTH tables for
+        a full re-upload. The next dispatch's flush rebuilds the device
+        state from the (authoritative) host arenas; nothing is lost."""
+        self._full |= {"node", "edge"}
+        self._dirty_nodes.clear()
+        self._dirty_edges.clear()
+        self._pending_ops += ops
+
+    def drain_dirty(self):
+        """(full-table names, node rows, edge bucket rows, ops) since the
+        last drain; clears the dirty state."""
+        full = self._full
+        nodes = np.fromiter(sorted(self._dirty_nodes), dtype=np.int64,
+                            count=len(self._dirty_nodes))
+        edges = np.fromiter(sorted(self._dirty_edges), dtype=np.int64,
+                            count=len(self._dirty_edges))
+        ops = self._pending_ops
+        self._full = set()
+        self._dirty_nodes = set()
+        self._dirty_edges = set()
+        self._pending_ops = 0
+        return full, nodes, edges, ops
+
+    def patch_stats(self) -> Dict[str, object]:
+        cap = int(self.node_tab.shape[0])
+        return {
+            "node_capacity": cap,
+            "live_nodes": int(self.n_live),
+            "node_headroom_ratio": round(1.0 - self.n_live / cap, 4),
+            "slots": len(self.matchings),
+            "dead_slots": int(self.dead_slots),
+            "garbage_slots": int(self.garbage_slots),
+            "frag_ratio": round(self.frag_ratio(), 4),
+            "patched_ops": int(self.patched_ops),
+            "relocations": int(self.relocations),
+            "edge_regrows": int(self.edge_regrows),
+            "node_grows": int(self.node_grows),
+        }
+
+    def _mark_node(self, nid: int) -> None:
+        if "node" not in self._full:
+            self._dirty_nodes.add(int(nid))
+
+    # ---------------- the patch ops (host plan + arena update) --------------
+
+    def patch_add(self, tenant_id: str, route: Route, *,
+                  group_members: Optional[Dict] = None) -> str:
+        """Fold one effective add into the arenas. Idempotent on the slot
+        level (find-or-append keyed by receiver/group identity), so the
+        log-suffix replay at a compaction swap can re-apply safely."""
+        root = self.tenant_root.get(tenant_id, _EMPTY)
+        if root < 0:
+            root = self._alloc_node()
+            self.tenant_root[tenant_id] = root
+        nid = self._descend(root, route.matcher.filter_levels, create=True)
+        if route.matcher.type == RouteMatcherType.NORMAL:
+            url = route.receiver_url
+            s = self._find_slot(
+                nid, lambda m: not isinstance(m, GroupMatching)
+                and m.receiver_url == url)
+            if s is not None:
+                self._slot_set(s, route)
+            else:
+                self._slot_append(nid, route)
+        else:
+            members = group_members or {}
+            if not members:
+                raise PatchFallback("group add without members")
+            gm = GroupMatching(
+                mqtt_topic_filter=route.matcher.mqtt_topic_filter,
+                ordered=route.matcher.type == RouteMatcherType.ORDERED_SHARE,
+                members=tuple(members.values()))
+            tf = route.matcher.mqtt_topic_filter
+            s = self._find_slot(
+                nid, lambda m: isinstance(m, GroupMatching)
+                and m.mqtt_topic_filter == tf)
+            if s is not None:
+                self._slot_set(s, gm)
+            else:
+                self._slot_append(nid, gm)
+        self.patched_ops += 1
+        self._pending_ops += 1
+        return "add"
+
+    def patch_remove(self, tenant_id: str, matcher, receiver_url, *,
+                     group_members: Optional[Dict] = None) -> str:
+        """Fold one effective remove in: tombstone the slot (normal / last
+        group member) or swap the group matching for the surviving member
+        set. Zero device traffic — intervals are untouched."""
+        root = self.tenant_root.get(tenant_id, _EMPTY)
+        if root < 0:
+            raise PatchFallback("tenant absent from base")
+        nid = self._descend(root, matcher.filter_levels, create=False)
+        if matcher.type == RouteMatcherType.NORMAL:
+            s = self._find_slot(
+                nid, lambda m: not isinstance(m, GroupMatching)
+                and m.receiver_url == receiver_url)
+            if s is None:
+                raise PatchFallback("route not in base (overlay-resident?)")
+            self._kill_slot(s)
+        else:
+            tf = matcher.mqtt_topic_filter
+            s = self._find_slot(
+                nid, lambda m: isinstance(m, GroupMatching)
+                and m.mqtt_topic_filter == tf)
+            if s is None:
+                raise PatchFallback("group not in base (overlay-resident?)")
+            if group_members:
+                old = self.matchings[s]
+                gm = GroupMatching(mqtt_topic_filter=tf,
+                                   ordered=old.ordered,
+                                   members=tuple(group_members.values()))
+                self._slot_set(s, gm)
+            else:
+                self._kill_slot(s)
+        self.patched_ops += 1
+        self._pending_ops += 1
+        return "remove"
+
+    # ---------------- path machinery ----------------------------------------
+
+    def _descend(self, nid: int, levels: Sequence[str], *,
+                 create: bool) -> int:
+        for level in levels:
+            if level == topic_util.SINGLE_WILDCARD:
+                child = int(self.node_tab[nid, NODE_PLUS])
+            elif level == topic_util.MULTI_WILDCARD:
+                child = int(self.node_tab[nid, NODE_HASH])
+            else:
+                h1, h2 = level_hash(level, self.salt)
+                child = self._edge_child(nid, h1, h2)
+                if child >= 0:
+                    known = self._edge_level.get((nid, h1, h2))
+                    if known is not None and known != level:
+                        # same-parent 64-bit collision among patch-era
+                        # edges: never guess — overlay + recompile
+                        raise PatchFallback(
+                            f"level-hash collision {known!r} vs {level!r}")
+            if child < 0:
+                if not create:
+                    raise PatchFallback(f"path missing at {level!r}")
+                child = self._alloc_child(nid, level)
+            nid = child
+        return nid
+
+    def _bucket_of(self, nid: int, h1: int, h2: int) -> int:
+        x = _mix_u32(np.array([nid], np.int32), np.array([h1], np.int32),
+                     np.array([h2], np.int32))[0]
+        return int(x & np.uint32(self.edge_tab.shape[0] - 1))
+
+    def _edge_child(self, nid: int, h1: int, h2: int) -> int:
+        row = self.edge_tab[self._bucket_of(nid, h1, h2)]
+        hit = np.nonzero((row[:, 0] == nid) & (row[:, 1] == h1)
+                         & (row[:, 2] == h2))[0]
+        return int(row[hit[0], 3]) if hit.size else _EMPTY
+
+    def _edge_insert(self, nid: int, h1: int, h2: int, cid: int) -> None:
+        b = self._bucket_of(nid, h1, h2)
+        row = self.edge_tab[b]
+        empty = np.nonzero(row[:, 0] < 0)[0]
+        if not empty.size:
+            self._edge_regrow()
+            return self._edge_insert(nid, h1, h2, cid)
+        self.edge_tab[b, empty[0]] = (nid, h1, h2, cid)
+        if "edge" not in self._full:
+            self._dirty_edges.add(b)
+
+    def _edge_regrow(self) -> None:
+        """A bucket overflowed: rebuild the hash table at ≥2x the bucket
+        count from its OWN live entries — vectorized re-insert, no trie
+        DFS. The mix mask changes, so the whole table re-ships."""
+        entries = self.edge_tab.reshape(-1, 4)
+        live = entries[entries[:, 0] >= 0]
+        self.edge_tab = _build_edge_table(
+            live, self.probe_len, min_cap=2 * self.edge_tab.shape[0])
+        self.edge_regrows += 1
+        self._full.add("edge")
+        self._dirty_edges.clear()
+
+    def _alloc_node(self) -> int:
+        if self.n_live >= self.node_tab.shape[0]:
+            self._grow_nodes()
+        nid = self.n_live
+        self.n_live += 1
+        self.node_tab[nid] = _EMPTY
+        self.node_tab[nid, NODE_RSTART] = len(self.matchings)
+        self.node_tab[nid, NODE_RCOUNT] = 0
+        self.node_tab[nid, NODE_CCOUNT] = 0
+        self.node_tab[nid, NODE_SYS_CCOUNT] = 0
+        self.node_tab[nid, NODE_SYS_SLOTS] = 0
+        self.node_tab[nid, NODE_HRCOUNT] = 0
+        self.node_tab[nid, NODE_HRSTART] = 0
+        self._mark_node(nid)
+        return nid
+
+    def _grow_nodes(self) -> None:
+        cap = self.node_tab.shape[0]
+        new = np.full((cap * 2, NODE_COLS), _EMPTY, dtype=np.int32)
+        new[:cap] = self.node_tab
+        self.node_tab = new
+        par = np.full(cap * 2, _EMPTY, dtype=np.int32)
+        par[:cap] = self.parent
+        self.parent = par
+        self.node_grows += 1
+        self._full.add("node")
+        self._dirty_nodes.clear()
+
+    def _alloc_child(self, nid: int, level: str) -> int:
+        cid = self._alloc_node()
+        if level == topic_util.SINGLE_WILDCARD:
+            self.node_tab[nid, NODE_PLUS] = cid
+        elif level == topic_util.MULTI_WILDCARD:
+            self.node_tab[nid, NODE_HASH] = cid
+            self.node_tab[nid, NODE_HRCOUNT] = 0
+            self.node_tab[nid, NODE_HRSTART] = \
+                self.node_tab[cid, NODE_RSTART]
+        else:
+            h1, h2 = level_hash(level, self.salt)
+            self._edge_insert(nid, h1, h2, cid)
+            self._edge_level[(nid, h1, h2)] = level
+            self.node_tab[nid, NODE_CCOUNT] += 1
+            if level.startswith(topic_util.SYS_PREFIX):
+                self.node_tab[nid, NODE_SYS_CCOUNT] += 1
+        self.parent[cid] = nid
+        self._mark_node(nid)
+        return cid
+
+    # ---------------- slot machinery ----------------------------------------
+
+    def _classify(self, m: Matching) -> int:
+        if isinstance(m, GroupMatching):
+            return CompiledTrie.SLOT_GROUP
+        from .oracle import PERSISTENT_SUB_BROKER_ID
+        return (CompiledTrie.SLOT_PERSISTENT
+                if m.broker_id == PERSISTENT_SUB_BROKER_ID
+                else CompiledTrie.SLOT_NORMAL)
+
+    def _append_slot(self, m: Matching) -> int:
+        s = len(self.matchings)
+        if s >= self._kind.shape[0]:
+            self._kind = np.concatenate(
+                [self._kind, np.full(self._kind.shape[0],
+                                     CompiledTrie.SLOT_NORMAL, np.int8)])
+            marr = np.empty(self._marr.shape[0] * 2, dtype=object)
+            marr[:s] = self._marr
+            self._marr = marr
+        self.matchings.append(m)
+        self._kind[s] = self._classify(m)
+        self._marr[s] = m
+        return s
+
+    def _slot_set(self, s: int, m: Matching) -> None:
+        """In-place slot content replacement (incarnation upsert / group
+        member swap) — same kind class, zero device traffic."""
+        self.matchings[s] = m
+        self._marr[s] = m
+        self._kind[s] = self._classify(m)
+
+    def _find_slot(self, nid: int, pred) -> Optional[int]:
+        rs = int(self.node_tab[nid, NODE_RSTART])
+        rc = int(self.node_tab[nid, NODE_RCOUNT])
+        for s in range(rs, rs + rc):
+            if self._kind[s] != CompiledTrie.SLOT_DEAD \
+                    and pred(self._marr[s]):
+                return s
+        return None
+
+    def _kill_slot(self, s: int) -> None:
+        # the matching object stays in place: in-flight expansions of the
+        # pre-remove walk may still be holding this slot id
+        self._kind[s] = CompiledTrie.SLOT_DEAD
+        self.dead_slots += 1
+
+    def _slot_append(self, nid: int, m: Matching) -> None:
+        rs = int(self.node_tab[nid, NODE_RSTART])
+        rc = int(self.node_tab[nid, NODE_RCOUNT])
+        tail = len(self.matchings)
+        if rc == 0:
+            s = self._append_slot(m)
+            self.node_tab[nid, NODE_RSTART] = s
+            self.node_tab[nid, NODE_RCOUNT] = 1
+        elif rs + rc == tail:
+            # the node already owns the arena tail: plain append
+            self._append_slot(m)
+            self.node_tab[nid, NODE_RCOUNT] = rc + 1
+        else:
+            # relocate the node's live slots to the tail; the old copies
+            # become garbage but stay LIVE so in-flight expansions of the
+            # pre-patch interval still see the pre-patch route set
+            new_start = tail
+            moved = 0
+            for s in range(rs, rs + rc):
+                if self._kind[s] == CompiledTrie.SLOT_DEAD:
+                    self.dead_slots -= 1    # dropped, now plain garbage
+                else:
+                    self._append_slot(self._marr[s])
+                    moved += 1
+            self.garbage_slots += rc
+            self._append_slot(m)
+            self.node_tab[nid, NODE_RSTART] = new_start
+            self.node_tab[nid, NODE_RCOUNT] = moved + 1
+            self.relocations += 1
+        self._after_interval_change(nid)
+
+    def _after_interval_change(self, nid: int) -> None:
+        self._mark_node(nid)
+        p = int(self.parent[nid])
+        if p >= 0 and int(self.node_tab[p, NODE_HASH]) == nid:
+            # re-fold the '#'-child interval into the parent record (the
+            # walk's per-step '#'-accept reads ONLY the parent row)
+            self.node_tab[p, NODE_HRCOUNT] = self.node_tab[nid, NODE_RCOUNT]
+            self.node_tab[p, NODE_HRSTART] = self.node_tab[nid, NODE_RSTART]
+            self._mark_node(p)
 
 
 # --------------------------- probe tokenization ----------------------------

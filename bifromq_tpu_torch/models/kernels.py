@@ -35,8 +35,9 @@ from ..ops.match import (DeviceTrie, Probes, RouteIntervals, RT_COLS,
                          _expand_pairs, walk_routes)
 from ..utils.device import CudaKernel, check_cuda, ptr, stream_of
 
-# (K, A) pairs the walk kernel is instantiated for (csrc/fused_walk.cu)
-WALK_SHAPES = ((32, 32), (32, 128), (128, 32), (128, 128))
+# the largest state budget K the walk kernel takes (csrc/fused_walk.cu:
+# K and A are run-time arguments, K in [1, WALK_MAX_K], any A >= 1)
+WALK_MAX_K = 256
 # edge-bucket widths P it is instantiated for: one half-warp's int4 loads
 WALK_PROBE_LENS = (16,)
 
@@ -90,9 +91,9 @@ def fused_walk_routes(trie: DeviceTrie, probes: Probes, *, probe_len: int,
         if batched:
             return _walk_blocks_plain(trie, probes, **kw)
         return walk_routes(trie, probes, esc_k=0, **kw)
-    if (k_states, max_intervals) not in WALK_SHAPES:
-        raise ValueError(f"walk kernel has no (K={k_states}, "
-                         f"A={max_intervals}) instance; have {WALK_SHAPES}")
+    if not (1 <= k_states <= WALK_MAX_K and max_intervals >= 1):
+        raise ValueError(f"walk kernel takes 1 <= K <= {WALK_MAX_K} and "
+                         f"A >= 1, not (K={k_states}, A={max_intervals})")
     if probe_len not in WALK_PROBE_LENS:
         raise ValueError(f"walk kernel has no bucket width P={probe_len} "
                          f"instance; have {WALK_PROBE_LENS}")

@@ -7,19 +7,28 @@ through three kernels — the BLAKE2b level hash, the fused interval walk
 and the fan-out expansion — and topics that exceed the fixed-shape walk
 fall back to the exact host oracle.
 
+Query side: ``match_batch`` is a **match-result cache** front end
+(``models/matchcache.TenantMatchCache``, on by default): a repeated
+(tenant, topic) is a dict probe, N identical rows of a batch walk once,
+and only the unique misses reach the device (``_match_batch_device``).
+
 Mutation → visibility:
 
-- Every mutation applies to the authoritative tries instantly and lands
-  in a small **delta overlay** — per-tenant delta tries for adds plus a
-  tombstone set for removes/supersedes — so it is visible to the next
-  match call without recompiling anything (in-place patching of the
-  device arenas is not ported yet: ``supports_patching`` is False).
-- Serving walks the **base** compiled automaton and corrects the
-  expansion with the overlay.
-- A background **compaction** folds the overlay into a new base: the
-  mutation log replays onto a shadow copy of the tries, the shadow
-  compiles off-thread, and the serving thread swaps the new tables in and
-  rebuilds the overlay from the log suffix.
+- Every mutation applies to the authoritative tries instantly and then
+  **patches the base in place** (``PatchableTrie``): new nodes, edges and
+  route slots land in the host arenas, removed routes become dead slots,
+  and the dirty rows ship to the device tables as narrow row writes
+  before the next walk (``_flush_patches``). No recompile.
+- An op the patcher declines (no base yet, a hash collision among
+  patch-era edges, a group add without members) lands in a small **delta
+  overlay** — per-tenant delta tries for adds plus a tombstone set for
+  removes/supersedes — and serving corrects the base expansion with it.
+- A background **compaction** builds a fresh base: the mutation log
+  replays onto a shadow copy of the tries, the shadow compiles
+  off-thread, and the serving thread swaps the new tables in and folds
+  the log suffix in as patches. It runs when the overlay reaches
+  ``compact_threshold`` ops or when dead and relocated slots fragment
+  the arena (``PatchableTrie.frag_pending``).
 
 The fetch is the synchronization: a ``.cpu()`` readback of the result
 tensors.
@@ -37,8 +46,9 @@ import torch
 
 from ..utils import topic as topic_util
 from ..utils.device import resolve_device
-from .automaton import (CompiledTrie, GroupMatching, Matching, TokenCache,
-                        compile_tries, tokenize)
+from ..types import RouteMatcherType
+from .automaton import (CompiledTrie, GroupMatching, Matching, PatchableTrie,
+                        PatchFallback, TokenCache, compile_tries, tokenize)
 from .oracle import (PERSISTENT_SUB_BROKER_ID, UNCAPPED_FANOUT,
                      MatchedRoutes, Route, SubscriptionTrie)
 
@@ -60,6 +70,14 @@ def _parse_levels(levels) -> List[str]:
     if isinstance(levels, str):
         return topic_util.parse(levels)
     return list(levels)
+
+
+def _query_key(levels):
+    """Cache/dedup key of a query's topic half: the raw string (or wire
+    bytes) is its own key; level lists keep the tuple form."""
+    if isinstance(levels, (str, bytes)):
+        return levels
+    return tuple(levels)
 
 
 # tombstone key: (full mqtt topic filter incl. any share prefix, receiver_url)
@@ -123,27 +141,25 @@ def apply_log_op(tries: Dict[str, SubscriptionTrie], op: Tuple) -> None:
 
 
 class TorchMatcher:
-    # in-place patching of the device arenas is not ported yet: every
-    # mutation takes the overlay + compaction path
-    supports_patching = False
+    # single-table bases are PatchableTrie and mutations fold into the
+    # arenas in place; a subclass whose compile target is not one
+    # CompiledTrie (the mesh's stacked shards) turns this off and keeps
+    # the overlay + compaction path
+    supports_patching = True
 
     def __init__(self, *, max_levels: int = 16, k_states: int = 32,
                  probe_len: int = 16, device=None,
                  auto_compact: bool = True,
                  compact_threshold: int = 2048,
-                 max_intervals: int = 32) -> None:
+                 max_intervals: int = 32,
+                 match_cache: bool = True) -> None:
         self.max_levels = max_levels
         self.k_states = k_states
         self.probe_len = probe_len
         self.max_intervals = max_intervals
         self.device = resolve_device(device)
         if self.device.type == "cuda":
-            from .kernels import WALK_PROBE_LENS, WALK_SHAPES
-            for shape in ((k_states, max_intervals),
-                          self._escalation_budget()):
-                if shape not in WALK_SHAPES:
-                    raise ValueError(f"the walk kernel has no (K, A) = "
-                                     f"{shape} instance; have {WALK_SHAPES}")
+            from .kernels import WALK_PROBE_LENS
             if probe_len not in WALK_PROBE_LENS:
                 raise ValueError(f"the walk kernel has no bucket width "
                                  f"{probe_len}; have {WALK_PROBE_LENS}")
@@ -161,6 +177,11 @@ class TorchMatcher:
         self._overlay_n = 0
         # per-topic token-row cache for level-list queries
         self._tok_cache = TokenCache()
+        # the match-result cache front end: filter-aware invalidation in
+        # add/remove_route, a generation bump on a salt change
+        from .matchcache import TenantMatchCache
+        self.match_cache = (TenantMatchCache(scope="matcher")
+                            if match_cache else None)
         # mutation log since the shadow copy last synced; shadow is the
         # frozen snapshot source for off-thread compiles
         self._log: List[Tuple] = []
@@ -175,6 +196,14 @@ class TorchMatcher:
         # last_expanded is the most recent device-bucketed batch
         self._peer_cache: Optional[Tuple] = None
         self.last_expanded = None
+        # patch-plane accounting: mutations folded into the base in place,
+        # ops the patcher declined (overlaid), device flushes and the
+        # cumulative host (plan + arena) and device-write seconds
+        self.patch_count = 0
+        self.patch_fallbacks = 0
+        self.patch_flushes = 0
+        self.patch_host_s = 0.0
+        self.patch_device_s = 0.0
 
     @classmethod
     def from_tries(cls, tries: Dict[str, SubscriptionTrie],
@@ -198,7 +227,12 @@ class TorchMatcher:
             return False
         op = ("add", tenant_id, route)
         self._log.append(op)
-        self._overlay_record(op)
+        self._fold_op(op)
+        if self.match_cache is not None:
+            # exact filters evict one topic key, wildcard filters bump
+            # the tenant epoch
+            self.match_cache.invalidate(tenant_id,
+                                        route.matcher.filter_levels)
         self._maybe_compact()
         return created
 
@@ -213,9 +247,104 @@ class TorchMatcher:
             del self.tries[tenant_id]
         op = ("rm", tenant_id, matcher, receiver_url, incarnation)
         self._log.append(op)
-        self._overlay_record(op)
+        self._fold_op(op)
+        if self.match_cache is not None:
+            self.match_cache.invalidate(tenant_id, matcher.filter_levels)
         self._maybe_compact()
         return True
+
+    # ---------------- in-place patching ------------------------------------
+
+    def _fold_op(self, op: Tuple) -> None:
+        """Patch-first fold of one log op; an op the patcher declines is
+        served from the delta overlay until the next compaction folds it
+        in."""
+        if not self._try_patch(op):
+            self._overlay_record(op)
+
+    def _group_members(self, tenant_id: str, matcher) -> dict:
+        """The authoritative surviving member set for a shared-group op —
+        the patcher replaces the whole GroupMatching slot with it (group
+        member churn is a host-side object swap, zero device traffic)."""
+        trie = self.tries.get(tenant_id)
+        node = trie._root if trie is not None else None
+        for level in matcher.filter_levels:
+            if node is None:
+                return {}
+            node = node.children.get(level)
+        if node is None:
+            return {}
+        gkey = (int(matcher.type), matcher.group or "")
+        return dict(node.groups.get(gkey, {}))
+
+    def _patch_targets(self, tenant_id: str) -> list:
+        """The PatchableTrie arena(s) a mutation for this tenant folds
+        into: the single-table base itself. Empty when there is nothing
+        to patch (no base yet, or a non-patchable compile target)."""
+        base = self._base_ct
+        if not self.supports_patching or not isinstance(base,
+                                                        PatchableTrie):
+            return []
+        return [base]
+
+    def _try_patch(self, op: Tuple) -> bool:
+        """Fold one log op straight into the installed base arenas.
+
+        Returns False when there is nothing to patch or the patcher
+        declined (``PatchFallback``) — the caller then records the op
+        into the overlay. The patch methods are find-or-append
+        idempotent, so a fold that declines mid-way is safe: the overlay
+        record supersedes the partially patched copy like a base copy.
+        """
+        targets = self._patch_targets(op[1])
+        if not targets:
+            return False
+        t0 = time.perf_counter()
+        try:
+            if op[0] == "add":
+                _, tenant_id, route = op
+                gm = None
+                if route.matcher.type != RouteMatcherType.NORMAL:
+                    gm = self._group_members(tenant_id, route.matcher)
+                for base in targets:
+                    base.patch_add(tenant_id, route, group_members=gm)
+            else:
+                _, tenant_id, matcher, url, _inc = op
+                gm = None
+                if matcher.type != RouteMatcherType.NORMAL:
+                    gm = self._group_members(tenant_id, matcher)
+                for base in targets:
+                    base.patch_remove(tenant_id, matcher, url,
+                                      group_members=gm)
+        except PatchFallback:
+            self.patch_fallbacks += 1
+            return False
+        self.patch_count += 1
+        self.patch_host_s += time.perf_counter() - t0
+        return True
+
+    def _flush_patches(self) -> None:
+        """Ship the host patches accumulated since the last flush to the
+        device tables as narrow row writes (coalesced: at most one flush
+        per dispatch, however many mutations landed since).
+
+        The writes go into the serving tables in place (``donate``): the
+        sync serving leg is the only one ported, and it reads back every
+        batch's results before it returns, so no dispatched walk can
+        still be reading the old tables here. The async pipeline ring
+        (ROADMAP A.7) must bring the reference's condition with it —
+        donate only while no other slot is in flight and the quarantine
+        is empty, otherwise write new tensors."""
+        base = self._base_ct
+        if not isinstance(base, PatchableTrie) or not base.dirty \
+                or self._device_trie is None:
+            return
+        from ..ops.match import patch_device_trie
+        t0 = time.perf_counter()
+        self._device_trie, _ = patch_device_trie(
+            self._device_trie, base, device=self.device, donate=True)
+        self.patch_flushes += 1
+        self.patch_device_s += time.perf_counter() - t0
 
     def _overlay_record(self, op: Tuple) -> None:
         """Fold one log op into the serving overlay (delta tries +
@@ -253,35 +382,89 @@ class TorchMatcher:
         self.compile_count += 1
         ct = compile_tries(self._shadow, max_levels=self.max_levels,
                            probe_len=self.probe_len)
+        if self.supports_patching:
+            # pad the arenas with pow2 growth headroom so the serving
+            # base accepts in-place patches
+            ct = PatchableTrie(ct)
         dev = DeviceTrie.from_compiled(ct, device=self.device)
         self.compile_time_s += time.perf_counter() - t0
         return ct, dev
 
     def refresh(self) -> CompiledTrie:
-        """Blocking quiesce: every pending mutation lands in the base."""
+        """Blocking quiesce: every pending mutation lands in the base.
+
+        When the base is patchable and every pending log op was already
+        folded in as a patch (the overlay is empty), quiesce is just a
+        shadow sync + device flush — no rebuild."""
         self.drain()
-        if self._base_ct is None or self._log:
+        if self._base_ct is None:
             self._replay_log_into_shadow()
             self._install_base(*self._compile_shadow())
+        elif self._log:
+            self._replay_log_into_shadow()
+            if self._overlay_n or not self._base_patchable():
+                self._install_base(*self._compile_shadow())
+        self._flush_patches()
         return self._base_ct
 
+    def _base_patchable(self) -> bool:
+        """Is the installed base exact under the patch-first path (so a
+        quiesce needs no rebuild)?"""
+        return isinstance(self._base_ct, PatchableTrie)
+
+    @staticmethod
+    def _base_salt(ct) -> object:
+        """Salt fingerprint of a base snapshot — the single-table
+        CompiledTrie's salt, or the mesh ShardedTables' per-shard salts."""
+        salt = getattr(ct, "salt", None)
+        if salt is not None:
+            return salt
+        shards = getattr(ct, "compiled", None)
+        if shards is not None:
+            return tuple(getattr(s, "salt", None) for s in shards)
+        return None
+
     def _install_base(self, ct: CompiledTrie, dev) -> None:
+        prev = self._base_ct
         self._base_ct = ct
         self._device_trie = dev
-        # mutations not in this base = the log suffix
+        # mutations not in this base = the log suffix: fold them in as
+        # PATCHES on the fresh arenas (find-or-append idempotent, so an op
+        # that raced the compile snapshot is safe to replay); only ops the
+        # patcher declines land in the overlay. Dirty rows flush on the
+        # next dispatch.
         self._delta = {}
         self._tomb = {}
         self._overlay_n = 0
         for op in self._log:
-            self._overlay_record(op)
+            self._fold_op(op)
+        # a same-salt compaction gives an automaton equivalent to base ⊕
+        # overlay, so every cached result stays exact (each mutation
+        # invalidated its keys when it was applied); only the first
+        # install or a salt change (hash-collision recompile) bumps the
+        # cache generation
+        if self.match_cache is not None and (
+                prev is None or self._base_salt(prev) != self._base_salt(ct)):
+            self.match_cache.bump_all()
 
-    def _maybe_compact(self) -> None:
+    def _patch_frag_pending(self) -> bool:
+        """Compaction trigger of the patch path: dead + garbage slots
+        crossed the fragmentation threshold. Pure adds never fragment."""
+        base = self._base_ct
+        return isinstance(base, PatchableTrie) and base.frag_pending()
+
+    def _maybe_compact(self, force: bool = False) -> None:
         # trigger on the FIRST mutation too (base is None): the first base
-        # builds in the background so the first publish finds it ready
+        # builds in the background so the first publish finds it ready.
+        # With patch-first mutations the overlay stays empty and the
+        # threshold trigger goes quiet; fragmentation triggers instead.
+        # ``force`` recompiles regardless.
+        frag = self.auto_compact and self._patch_frag_pending()
         if (self._compact_thread is not None
-                or not self.auto_compact
-                or (self._base_ct is not None
-                    and self._overlay_n < self.compact_threshold)):
+                or (not force and not frag
+                    and (not self.auto_compact
+                         or (self._base_ct is not None
+                             and self._overlay_n < self.compact_threshold)))):
             self._apply_pending_swap()
             return
         # snapshot: fold the log into the shadow NOW (serving thread,
@@ -340,9 +523,87 @@ class TorchMatcher:
                     batch: Optional[int] = None) -> List[MatchedRoutes]:
         """Match (tenant_id, topic) pairs; returns per-query routes.
 
-        Exact at every instant: base walk ⊕ overlay ⊖ tombstones equals a
-        match against the authoritative tries. Dispatch (tokenize + walk +
-        expand on the device), fetch and host expansion run back to back.
+        The cache front end: a per-query cache probe, then in-batch
+        dedup, so N identical (tenant, topic) rows walk once and only the
+        unique misses reach ``_match_batch_device``. Cached and fanned-out
+        results are shared objects: callers treat them as read-only.
+        """
+        if not queries:
+            return []
+        cache = self.match_cache
+        if cache is None:
+            return self._match_batch_device(
+                queries, max_persistent_fanout=max_persistent_fanout,
+                max_group_fanout=max_group_fanout, batch=batch)
+        # fold any finished background compaction in BEFORE probing: its
+        # generation bump must land before this batch's token snapshots
+        self._apply_pending_swap()
+        caps = (max_persistent_fanout, max_group_fanout)
+        out, uniq, uniq_queries, miss_rows, tokens = \
+            self._frontend_probe(queries, caps)
+        if uniq_queries:
+            res = self._match_batch_device(
+                uniq_queries, max_persistent_fanout=max_persistent_fanout,
+                max_group_fanout=max_group_fanout, batch=batch)
+            self._frontend_fill(out, res, uniq, miss_rows, tokens, caps)
+        self._frontend_metrics(len(queries), uniq_queries, miss_rows)
+        return out
+
+    def _frontend_probe(self, queries, caps):
+        """Cache probe + in-batch dedup: returns (out, uniq, uniq_queries,
+        miss_rows, tokens) where ``out`` holds the hits and ``tokens``
+        the invalidation snapshots, taken BEFORE any walk is issued so a
+        mutation landing mid-match defeats the store."""
+        cache = self.match_cache
+        out: List[Optional[MatchedRoutes]] = [None] * len(queries)
+        uniq: Dict[Tuple[str, object], int] = {}
+        uniq_queries: List[Tuple[str, Sequence[str]]] = []
+        miss_rows: List[Tuple[int, int]] = []   # (query idx, unique pos)
+        for qi, (tenant_id, levels) in enumerate(queries):
+            key = _query_key(levels)
+            m = cache.get(tenant_id, key, caps)
+            if m is not None:
+                out[qi] = m
+                continue
+            uk = (tenant_id, key)
+            pos = uniq.get(uk)
+            if pos is None:
+                pos = uniq[uk] = len(uniq_queries)
+                uniq_queries.append((tenant_id, levels))
+            miss_rows.append((qi, pos))
+        tokens = ({t: cache.token(t) for t in {q[0] for q in uniq_queries}}
+                  if uniq_queries else {})
+        return out, uniq, uniq_queries, miss_rows, tokens
+
+    def _frontend_fill(self, out, res, uniq, miss_rows, tokens, caps):
+        cache = self.match_cache
+        for (tenant_id, key), pos in uniq.items():
+            cache.put(tenant_id, key, caps, res[pos], tokens[tenant_id])
+        for qi, pos in miss_rows:
+            out[qi] = res[pos]
+
+    def _frontend_metrics(self, n_queries, uniq_queries, miss_rows):
+        # global section totals: one locked inc per batch, not per row
+        from ..utils.metrics import MATCH_CACHE
+        MATCH_CACHE.inc(self.match_cache.scope, "hits",
+                        n_queries - len(miss_rows))
+        MATCH_CACHE.inc(self.match_cache.scope, "misses", len(miss_rows))
+        if uniq_queries:
+            MATCH_CACHE.record_dedup(len(uniq_queries),
+                                     len(miss_rows) - len(uniq_queries))
+
+    def _match_batch_device(self, queries: Sequence[Tuple[str,
+                                                          Sequence[str]]],
+                            *, max_persistent_fanout: int = UNCAPPED_FANOUT,
+                            max_group_fanout: int = UNCAPPED_FANOUT,
+                            batch: Optional[int] = None
+                            ) -> List[MatchedRoutes]:
+        """Match (tenant_id, topic) pairs on the device.
+
+        Exact at every instant: patched base walk ⊕ overlay ⊖ tombstones
+        equals a match against the authoritative tries. Dispatch
+        (tokenize + walk + expand on the device), fetch and host
+        expansion run back to back.
         """
         if not queries:
             return []
@@ -391,6 +652,10 @@ class TorchMatcher:
             # a compaction swap landed between prep and dispatch: roots
             # and salt are per-snapshot, so re-prep against the new base
             prep = self._prepare_probes(prep.queries, prep.batch)
+        # ship the host patches accumulated since the last dispatch (one
+        # coalesced narrow write), so this batch walks the post-mutation
+        # tables
+        self._flush_patches()
         ct = prep.ct
         res = self._walk_primary(prep.probes, ct)
         peer_tab, slot_peer = self._peer_table(ct)
@@ -547,6 +812,13 @@ class TorchMatcher:
         if row.size == 0:
             return out
         kinds = ct.slot_kind[row]
+        # tombstoned slots ride their interval until compaction reclaims
+        # them: the walk emits them, this is where they die
+        dead = kinds == CompiledTrie.SLOT_DEAD
+        if dead.any():
+            row, kinds = row[~dead], kinds[~dead]
+            if row.size == 0:
+                return out
         pers_mask = kinds == CompiledTrie.SLOT_PERSISTENT
         if (max_persistent_fanout != UNCAPPED_FANOUT
                 and int(pers_mask.sum()) > max_persistent_fanout):
@@ -579,7 +851,10 @@ class TorchMatcher:
         """Base expansion ⊖ tombstones ⊕ delta matches, then caps."""
         normal: List[Route] = []
         groups: Dict[str, List[Route]] = {}
+        kind_arr = ct.slot_kind
         for slot in (int(s) for s in slots):
+            if kind_arr[slot] == CompiledTrie.SLOT_DEAD:
+                continue    # a patch-tombstoned base slot
             m: Matching = ct.matchings[slot]
             if isinstance(m, GroupMatching):
                 members = [r for r in m.members

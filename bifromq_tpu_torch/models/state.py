@@ -8,6 +8,11 @@ The layouts are the same column for column.
 
 ``sharded_tables_to_device`` uploads the stacked per-shard tables of a
 ``parallel.sharded.ShardedTables`` for the mesh walk.
+
+``patchable_from_numpy`` takes a reference ``PatchableTrie``'s arenas and
+state and returns the port's ``PatchableTrie`` and its ``DeviceTrie``,
+so the port can serve and keep patching the very arenas the reference
+built.
 """
 
 from __future__ import annotations
@@ -57,3 +62,39 @@ def sharded_tables_to_device(tables, device=None
     return tuple(torch.from_numpy(np.ascontiguousarray(a)).to(dev)
                  for a in (tables.edge_tab, tables.child_list,
                            tables.route_tab))
+
+
+PATCHABLE_ARENAS = ("node_tab", "edge_tab", "child_list", "slot_kind")
+
+
+def patchable_from_numpy(*, matchings, tenant_root, n_live: int, salt: int,
+                         probe_len: int, max_levels: int, dead_slots: int = 0,
+                         garbage_slots: int = 0, device=None,
+                         **arenas: np.ndarray):
+    """Carry a reference ``PatchableTrie`` across: its arenas as numpy
+    (``node_tab``, ``edge_tab``, ``child_list`` int32 and ``slot_kind``
+    int8, capacity padding and patch-era rows included), its
+    ``matchings`` rebuilt as port ``Route``/``GroupMatching`` objects in
+    slot order, and its scalar state. Returns the port ``PatchableTrie``
+    (through ``from_arenas``: no DFS, no recompile) and its
+    :class:`~bifromq_tpu_torch.ops.match.DeviceTrie` on ``device``
+    (``None`` means the card)."""
+    from .automaton import PatchableTrie
+    dev = resolve_device(device)
+    if sorted(arenas) != sorted(PATCHABLE_ARENAS):
+        raise KeyError(f"expected the arenas {PATCHABLE_ARENAS}, got "
+                       f"{sorted(arenas)}")
+    for k, dtype in zip(PATCHABLE_ARENAS,
+                        (np.int32, np.int32, np.int32, np.int8)):
+        if np.asarray(arenas[k]).dtype != dtype:
+            raise ValueError(f"{k}: expected {np.dtype(dtype).name}, got "
+                             f"{np.asarray(arenas[k]).dtype}")
+    if len(arenas["slot_kind"]) != len(matchings):
+        raise ValueError(f"slot_kind has {len(arenas['slot_kind'])} slots, "
+                         f"matchings {len(matchings)}")
+    pt = PatchableTrie.from_arenas(
+        **{k: np.array(arenas[k]) for k in PATCHABLE_ARENAS},
+        n_live=n_live, matchings=matchings, tenant_root=tenant_root,
+        salt=salt, probe_len=probe_len, max_levels=max_levels,
+        dead_slots=dead_slots, garbage_slots=garbage_slots)
+    return pt, DeviceTrie.from_compiled(pt, device=dev)

@@ -6,7 +6,8 @@ interval-emitting walk (``walk_routes``, whose single-launch kernel is
 ``models/kernels.fused_walk_routes``), the ragged-arange expansion
 (``_expand_pairs``, whose kernel is ``models/kernels.kernel_expand``) and
 the per-peer bucketing (``_bucket_pairs``, plain PyTorch on the card too,
-as it is plain XLA in the reference).
+as it is plain XLA in the reference). ``patch_device_trie`` writes a
+patched arena's dirty rows into the device tables.
 
 - B topics × K active NFA states advance one topic level per step.
 - Literal-edge lookup = ONE bucket-row gather of the single-choice hash
@@ -77,6 +78,13 @@ def count_cols_from_node_tab(node_tab: np.ndarray) -> np.ndarray:
     return count_cols
 
 
+def put(a: np.ndarray, device) -> torch.Tensor:
+    """A device copy of a host array. Always a copy, on the CPU too: the
+    host arenas are patched in place, and a device table that aliased
+    them would change before its flush."""
+    return torch.from_numpy(np.ascontiguousarray(a)).to(device, copy=True)
+
+
 @dataclass
 class DeviceTrie:
     """Compiled automaton tables resident on the device."""
@@ -88,14 +96,12 @@ class DeviceTrie:
 
     @staticmethod
     def from_compiled(ct: CompiledTrie, device) -> "DeviceTrie":
-        def put(a):
-            return torch.from_numpy(np.ascontiguousarray(a)).to(device)
         return DeviceTrie(
-            node_tab=put(ct.node_tab),
-            edge_tab=put(ct.edge_tab),
-            child_list=put(ct.child_list),
-            count_tab=put(count_cols_from_node_tab(ct.node_tab)),
-            route_tab=put(route_cols_from_node_tab(ct.node_tab)),
+            node_tab=put(ct.node_tab, device),
+            edge_tab=put(ct.edge_tab, device),
+            child_list=put(ct.child_list, device),
+            count_tab=put(count_cols_from_node_tab(ct.node_tab), device),
+            route_tab=put(route_cols_from_node_tab(ct.node_tab), device),
         )
 
 
@@ -331,6 +337,93 @@ def walk_routes(trie: DeviceTrie, probes: Probes, *, probe_len: int,
     n_routes[ok_idx] = nr2[success]
     overflow[ok_idx] = False
     return RouteIntervals(ivl_s, ivl_c, n_routes, overflow)
+
+
+# ------------------- device-side patch application --------------------------
+#
+# A host patch (models.automaton.PatchableTrie) ships to the device as
+# narrow row writes — idx + row values only, never a whole-table
+# re-upload — unless the arena reshaped (node growth / edge regrow), which
+# re-puts just the reshaped table. ``donate=True`` writes the rows into the
+# serving tables in place (``index_copy_``): legal only when no dispatched
+# batch still reads the old tables. ``donate=False`` returns new tensors
+# and leaves the old ones intact for whoever holds them. The reference's
+# ``_pad_patch_idx``, ``scatter_warm_shapes`` and ``warm_patch_scatter``
+# exist to spare XLA re-traces of its scatter; eager PyTorch traces
+# nothing, so they are not copied.
+
+
+def patch_device_trie(dev: DeviceTrie, pt, *, device=None,
+                      donate: bool = False):
+    """Apply a PatchableTrie's pending dirty set to the device tables.
+
+    Returns ``(new DeviceTrie, stats)`` with ``stats`` carrying the rows
+    touched, host→device bytes shipped, the mutation count drained, and
+    whether any table reshaped. On any failure the drained rows are
+    restored as a full re-upload (``restore_dirty``) and the error
+    propagates.
+    """
+    full, node_rows, edge_rows, ops = pt.drain_dirty()
+    try:
+        return _patch_device_trie(dev, pt, full, node_rows, edge_rows,
+                                  ops, device=device, donate=donate)
+    except BaseException:
+        # the drained rows must not be lost (an in-place update may even
+        # have written some tables and not others): full re-upload dirt
+        pt.restore_dirty(ops)
+        raise
+
+
+def _patch_device_trie(dev, pt, full, node_rows, edge_rows, ops, *,
+                       device, donate):
+    if device is None:
+        device = dev.node_tab.device
+
+    def write(tab, idx, rows):
+        if donate:
+            return tab.index_copy_(0, idx, rows)
+        return tab.index_copy(0, idx, rows)
+
+    stats = {"rows": 0, "bytes": 0, "ops": ops, "reshaped": False,
+             "full": sorted(full), "donated": bool(donate)}
+    node_tab, count_tab, route_tab = (dev.node_tab, dev.count_tab,
+                                      dev.route_tab)
+    edge_tab = dev.edge_tab
+    if "node" in full:
+        stats["reshaped"] |= tuple(pt.node_tab.shape) \
+            != tuple(dev.node_tab.shape)
+        node_tab = put(pt.node_tab, device)
+        count_tab = put(count_cols_from_node_tab(pt.node_tab), device)
+        route_tab = put(route_cols_from_node_tab(pt.node_tab), device)
+        stats["rows"] += int(pt.node_tab.shape[0])
+        stats["bytes"] += int(pt.node_tab.nbytes) \
+            + pt.node_tab.shape[0] * (CT_COLS + RT_COLS) * 4
+    elif node_rows.size:
+        rows_np = pt.node_tab[node_rows]
+        idx = put(node_rows, device)
+        node_tab = write(node_tab, idx, put(rows_np, device))
+        count_tab = write(count_tab, idx,
+                          put(count_cols_from_node_tab(rows_np), device))
+        route_tab = write(route_tab, idx,
+                          put(route_cols_from_node_tab(rows_np), device))
+        stats["rows"] += int(node_rows.size)
+        stats["bytes"] += int(node_rows.nbytes) + int(rows_np.nbytes) \
+            + node_rows.size * (CT_COLS + RT_COLS) * 4
+    if "edge" in full:
+        stats["reshaped"] |= tuple(pt.edge_tab.shape) \
+            != tuple(dev.edge_tab.shape)
+        edge_tab = put(pt.edge_tab, device)
+        stats["rows"] += int(pt.edge_tab.shape[0])
+        stats["bytes"] += int(pt.edge_tab.nbytes)
+    elif edge_rows.size:
+        rows_np = pt.edge_tab[edge_rows]
+        edge_tab = write(edge_tab, put(edge_rows, device),
+                         put(rows_np, device))
+        stats["rows"] += int(edge_rows.size)
+        stats["bytes"] += int(edge_rows.nbytes) + int(rows_np.nbytes)
+    return DeviceTrie(node_tab=node_tab, edge_tab=edge_tab,
+                      child_list=dev.child_list, count_tab=count_tab,
+                      route_tab=route_tab), stats
 
 
 def expand_intervals(ivl_start: np.ndarray, ivl_count: np.ndarray

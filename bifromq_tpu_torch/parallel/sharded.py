@@ -20,9 +20,11 @@ grid is a leading ``[R, S]`` block axis of every tensor:
 Serving is ``TorchMeshMatcher.match_batch``: shard-route → host tokenize
 per shard → one walk launch and one expansion call for the whole grid →
 per-peer bucketing per block → ring merge → fetch → ``MatchedRoutes``.
-Mutations take the overlay + compaction path of
-:class:`~bifromq_tpu_torch.models.matcher.TorchMatcher`. Not ported yet:
-shard breakers, canaries and split dispatch, the per-shard patch plane,
+The match-result cache front end of
+:class:`~bifromq_tpu_torch.models.matcher.TorchMatcher` sits in front of
+it, as it does in the reference. Mutations take TorchMatcher's overlay +
+compaction path. Not ported yet: shard breakers, canaries and split
+dispatch, the per-shard patch plane (``supports_patching`` is False),
 pins, rebalance, migration and resize, hot-tenant replication, the
 completion board.
 """
@@ -288,23 +290,26 @@ class _MeshInFlight:
 
 class TorchMeshMatcher(TorchMatcher):
     """The tenant-sharded match plane on one card, with TorchMatcher's
-    mutation machinery (delta overlay + background compaction) and the
-    same staged serving path (prepare → dispatch → fetch → expand)."""
+    cache front end and mutation machinery (delta overlay + background
+    compaction) and the same staged serving path (prepare → dispatch →
+    fetch → expand)."""
 
+    # the per-shard patch plane is not ported (ROADMAP A.11)
     supports_patching = False
 
     def __init__(self, tries: Dict[str, SubscriptionTrie] = None,
                  mesh: MeshShape = None, *, max_levels: int = 16,
                  probe_len: int = 16, k_states: int = 32,
                  auto_compact: bool = True, compact_threshold: int = 2048,
-                 max_intervals: int = 32) -> None:
+                 max_intervals: int = 32, match_cache: bool = True) -> None:
         if mesh is None:
             raise ValueError("TorchMeshMatcher requires a mesh (make_mesh)")
         super().__init__(max_levels=max_levels, k_states=k_states,
                          probe_len=probe_len, device=mesh.device,
                          auto_compact=auto_compact,
                          compact_threshold=compact_threshold,
-                         max_intervals=max_intervals)
+                         max_intervals=max_intervals,
+                         match_cache=match_cache)
         self.mesh = mesh
         self.n_replicas = mesh.shape[REPLICA_AXIS]
         self.n_shards = mesh.shape[SHARD_AXIS]

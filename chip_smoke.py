@@ -18,10 +18,17 @@ with an NVIDIA H100 and the CUDA toolkit. The script
      ``max_levels``, a level ending on the row's last byte, padding
      rows, ``$`` topics) and that batch with its level boundaries moved
      outside the rows; timed at B = 16384 and 4096, with the live lanes;
+     then ("K1-wide") at row widths 1536, 4096, 16384 and 65535 bytes,
+     past the default 48 KB tile, on random rows and on packed topics;
    - the walk (K2) on the config-2 probes at (K, A) = (32, 32) and
      (128, 128), and on seeded synthetic automata whose buckets are full
      and whose rows reach the sorted compaction and overflow, one table
      and four stacked under a [2, 4] block grid in one batched call;
+     then ("K2-budgets") at every (K, A) of K in {2, 4, 6, 8, 16, 24,
+     32, 64, 128, 256} x A in {1, 2, ..., 256}, which covers every
+     primary and escalation budget the reference's tests reach, and
+     ``TorchMatcher(k_states=16)`` (escalation (64, 128)) serving 1024
+     topics equal to the host oracle;
    - the expansion (K3) also on seeded adversarial grids (long runs of
      empty lanes, a lane longer than a tile, totals below, at and far
      above the buffer, a buffer that is no multiple of the tile,
@@ -35,9 +42,17 @@ with an NVIDIA H100 and the CUDA toolkit. The script
    batch against the host oracle and the launches of each batch (the
    hash once, the walk once or twice, the expansion once); then times
    one more batch stage by stage (prepare, dispatch, fetch, host
-   expansion);
+   expansion); then runs bench.py's config 8 ("churn") on the same
+   matcher: 256 subscribes, each patched in place and flushed to the
+   card, and 128 unsubscribes, with a 64-topic batch every 8 subscribes,
+   checking that no full compile ran, that the device tables equal the
+   host arenas and that the results equal the host oracle;
 5. serves a 100K-subscription tenant whose deliverer keys name 8 servers
    and checks the device's per-peer buckets against the host bucketing;
+   that matcher keeps the match-result cache on, and the same batch
+   served again ("cache") must launch no kernel and return the very same
+   results, an exact-filter subscribe must re-walk only its topic's rows
+   and a wildcard subscribe every row;
 6. holds the mesh ring-hop kernel against its plain version for both
    mesh axes at the mesh path's shape ``[2, 4, n_peers + 2]`` (n_peers 0
    and 8) and at ``[2, 4, 1 << 20]``, timing kernel, its device time,
@@ -61,8 +76,11 @@ with an NVIDIA H100 and the CUDA toolkit. The script
    population whose deliverer keys name 8 servers, so the blocks bucket
    into 8 peers and the ring merges ``[2, 4, 10]`` count vectors.
 
-It prints the card's name and power limit, one ``{"kernels": [...]}``
-line and, last, ``{"ok": true, "device": {...}}``. Any failure exits
+The config-2 and mesh matchers run with the match cache off, as
+bench.py's config 2 does, so every batch reaches the card. It prints the
+card's name and power limit, the script's total seconds, one
+``{"kernels": [...]}`` line and, last, ``{"ok": true, "device":
+{...}}``. Any failure exits
 non-zero without the last line; so does a machine with no CUDA card or
 a directory without the package.
 """
@@ -818,7 +836,8 @@ def mesh_phase(torch, dev, smi, n_tenants=MESH_TENANTS, total_subs=MESH_SUBS,
     tries = workloads.config_multi_tenant(n_tenants, total_subs, seed=0)
     gen_s = time.perf_counter() - t0
     t0 = time.perf_counter()
-    mm = TorchMeshMatcher.from_tries(tries, mesh=make_mesh(*MESH, device=dev))
+    mm = TorchMeshMatcher.from_tries(tries, mesh=make_mesh(*MESH, device=dev),
+                                     match_cache=False)
     tables = mm.compiled
     sync(torch, dev)
     compile_s = time.perf_counter() - t0
@@ -887,7 +906,8 @@ def mesh_peer_phase(torch, dev, n_tenants=MESH_PEER_TENANTS,
     tries = workloads.config_multi_tenant(
         n_tenants, total_subs, seed=0,
         deliverer_key=lambda t, i: f"srv{(t + i) % 8}|t{t}d{i}")
-    mm = TorchMeshMatcher.from_tries(tries, mesh=make_mesh(*MESH, device=dev))
+    mm = TorchMeshMatcher.from_tries(tries, mesh=make_mesh(*MESH, device=dev),
+                                     match_cache=False)
     out = serve_mesh_batch(torch, dev, mm,
                            config5_traffic(tries, batch, 1)[0])
     if out["n_peers"] != 8:
@@ -896,6 +916,301 @@ def mesh_peer_phase(torch, dev, n_tenants=MESH_PEER_TENANTS,
     print(json.dumps({"phase": "mesh-peers", "tenants": n_tenants,
                       "subs": total_subs, **out,
                       "seconds": time.perf_counter() - t0}), flush=True)
+
+
+K1_WIDE_MB = (1536, 4096, 16384, 65535)   # past the old 1520-byte limit
+# every primary and escalation (K, A) budget the reference's tests reach:
+# k_states in {2, 4, 6, 8, 16, 32}, max_intervals in {1, ..., 32} and the
+# escalation (min(4K, 128), max(min(4A, 256), A)); plus the kernel's top K
+K2_BUDGET_K = (2, 4, 6, 8, 16, 24, 32, 64, 128, 256)
+K2_BUDGET_A = (1, 2, 4, 8, 16, 32, 64, 128, 256)
+CHURN_OPS = 256          # bench.py config 8 (BENCH_CHURN_OPS default)
+CHURN_BATCH = 64
+
+
+def k1_wide_phase(torch, T, TopicBytes, dev, smi):
+    """K1 against ``_hash_lanes`` with exact equality at row widths past
+    the default 48 KB tile (``K1_WIDE_MB``): random row bytes with level
+    boundaries spread over the whole row, and packed topics whose levels
+    fill it (``pack_topic_bytes`` at that width). Returns the max
+    error."""
+    import random
+
+    import numpy as np
+    rng = np.random.default_rng(11)
+    err, out = 0, {}
+    for mb in K1_WIDE_MB:
+        b, w = 256, 17
+        rows = rng.integers(0, 256, (b, mb), dtype=np.uint8)
+        lens = rng.integers(0, 129, (b, w)).astype(np.int32)
+        starts = rng.integers(0, mb - 128, (b, w)).astype(np.int32)
+        starts[:, -1] = mb - lens[:, -1]          # levels ending on mb - 1
+        nlv = rng.integers(-1, w + 1, (b, 1)).astype(np.int32)
+        cases = {"random": [torch.from_numpy(a).to(dev)
+                            for a in (rows, starts, lens, nlv)]}
+        # packed topics: 128-byte levels filling the row, max_levels deep
+        pr = random.Random(mb)
+        max_levels = mb // 129
+        topics = ["/".join("".join(pr.choice("abcdefgh$+")
+                                   for _ in range(pr.randint(0, 128)))
+                           for _ in range(pr.randint(1, max_levels)))
+                  for _ in range(64)]
+        old = os.environ.get("BIFROMQ_TOK_MAX_BYTES")
+        os.environ["BIFROMQ_TOK_MAX_BYTES"] = str(mb)
+        try:
+            lengths, _, _, rows_b, st_b, ln_b = T.pack_topic_bytes(
+                TopicBytes.from_topics(topics), [0] * 64,
+                max_levels=max_levels, batch=64)
+        finally:
+            if old is None:
+                del os.environ["BIFROMQ_TOK_MAX_BYTES"]
+            else:
+                os.environ["BIFROMQ_TOK_MAX_BYTES"] = old
+        cases["packed"] = [torch.from_numpy(a).to(dev) for a in
+                           (rows_b, st_b, ln_b, lengths.reshape(64, 1))]
+        h0 = T.h0_tensor(7, dev)
+        res = {}
+        for name, args in cases.items():
+            got = T.blake2b_levels(*args, h0)
+            want = T._hash_lanes(*args, h0)
+            torch.cuda.synchronize()
+            e = max_abs_err(torch, got, want)
+            err = max(err, e)
+            res[name] = {"shape": list(args[1].shape), "max_abs_err": e,
+                         "live": int(args[3].clamp(0, args[1].shape[1])
+                                     .sum())}
+        res["ms"] = time_ms(torch, lambda: T.blake2b_levels(
+            *cases["random"], h0), 20)
+        out[str(mb)] = res
+    print(json.dumps({"phase": "K1-wide", "card": smi, "cases": out,
+                      "max_abs_err": err}), flush=True)
+    if err:
+        raise AssertionError(f"K1 differs from _hash_lanes on wide rows: "
+                             f"{out}")
+    return err
+
+
+def k2_budgets_phase(torch, K, M, D, workloads, trie, probes, dev, smi):
+    """K2 against ``walk_routes(esc_k=0)`` at every (K, A) of
+    ``K2_BUDGET_K`` x ``K2_BUDGET_A`` on the first 4096 config-2 probe
+    rows, and at K = 6 and 24 on the seeded full-bucket tables, exact;
+    then ``TorchMatcher(k_states=16)`` — escalation budget (64, 128) —
+    serves a batch of 1024 topic strings equal to the host oracle row for
+    row. Returns the max error."""
+    import numpy as np
+    from bifromq_tpu_torch.models.matcher import TorchMatcher
+    sub = M.Probes(*(x[:B_SERVE].contiguous() for x in
+                     (probes.tok_h1, probes.tok_h2, probes.lengths,
+                      probes.roots, probes.sys_mask)), probes.max_len)
+    err, cases = 0, []
+    for k_states in K2_BUDGET_K:
+        for a in K2_BUDGET_A:
+            kw = dict(probe_len=16, k_states=k_states, max_intervals=a)
+            got = K.fused_walk_routes(trie, sub, **kw)
+            want = M.walk_routes(trie, sub, esc_k=0, **kw)
+            torch.cuda.synchronize()
+            e = max_abs_err(torch, [getattr(got, f) for f in WALK_FIELDS],
+                            [getattr(want, f) for f in WALK_FIELDS])
+            err = max(err, e)
+            cases.append([k_states, a, e, int(got.overflow.sum())])
+    d = workloads.dense_walk_tables(0)
+
+    def put(x):
+        return torch.from_numpy(np.ascontiguousarray(x)).to(dev)
+    rt = put(d["route_tab"])
+    dense = M.DeviceTrie(rt, put(d["edge_tab"]), None, None, rt)
+    dp = M.Probes(put(d["tok_h1"]), put(d["tok_h2"]), put(d["lengths"]),
+                  put(d["roots"]), put(d["sys_mask"]),
+                  int(d["lengths"].max()))
+    for k_states in (6, 24):
+        err = max(err, k2_hold(torch, K, M, dense, dp, k_states, 32, 16,
+                               "dense")[1])
+    print(json.dumps({"phase": "K2-budgets", "card": smi,
+                      "rows": B_SERVE, "cases [K, A, err, overflow]": cases,
+                      "max_abs_err": err}), flush=True)
+    if err:
+        raise AssertionError(f"K2 differs from walk_routes at some budget: "
+                             f"{[c for c in cases if c[2]]}")
+    t0 = time.perf_counter()
+    m16 = TorchMatcher.from_tries(workloads.config_wildcard(N_PEER_SUBS,
+                                                            seed=0),
+                                  k_states=16, device=dev, match_cache=False)
+    queries = [("tenant0", "/".join(t))
+               for t in workloads.probe_topics(1024, seed=5)]
+    D.reset_launches()
+    res = m16.match_batch(queries)
+    launched = {k: v.launches for k, v in D.KERNELS.items()}
+    oracle = m16.match_from_tries(queries)
+    bad = [i for i, (r, o) in enumerate(zip(res, oracle))
+           if canon(r) != canon(o)]
+    pairs, _ = m16.last_expanded
+    print(json.dumps({"phase": "K2-budgets-serve", "k_states": 16,
+                      "escalation": list(m16._escalation_budget()),
+                      "rows": len(queries), "rows_differing": len(bad),
+                      "walk_overflow_rows": int(pairs.res.overflow.sum()),
+                      "launches": launched,
+                      "seconds": time.perf_counter() - t0}), flush=True)
+    if bad or not launched["fused_walk"]:
+        raise AssertionError(f"TorchMatcher(k_states=16) rows {bad[:8]} "
+                             f"differ from the oracle, launches {launched}")
+    return err
+
+
+def _pcts(xs):
+    import numpy as np
+    a = np.asarray(xs) * 1e3
+    return {"p50": float(np.percentile(a, 50)),
+            "p99": float(np.percentile(a, 99)), "mean": float(a.mean()),
+            "n": len(xs)}
+
+
+def churn_phase(torch, M, D, workloads, m, smi):
+    """bench.py config 8 on the config-2 matcher: ``CHURN_OPS``
+    subscribes, each patched into the 1M-subscription base and flushed to
+    the card, then half as many unsubscribes, with a 64-topic
+    ``match_batch`` every 8 subscribes. Fails unless no full compile ran,
+    the device tables equal the host arenas element for element, the
+    walk launched on them, and 256 probe rows plus the churn topics equal
+    the host oracle. Returns the phase's summary."""
+    from bifromq_tpu_torch.models.oracle import Route
+    from bifromq_tpu_torch.types import RouteMatcher
+
+    def mk(tf, rid, inc=0):
+        return Route(matcher=RouteMatcher.from_topic_filter(tf),
+                     broker_id=0, receiver_id=rid, deliverer_key="d0",
+                     incarnation=inc)
+
+    topics = ["/".join(t) for t in
+              workloads.probe_topics(CHURN_BATCH * 8, seed=1)]
+    mbs = [[("tenant0", t) for t in
+            topics[i * CHURN_BATCH:(i + 1) * CHURN_BATCH]] for i in range(8)]
+    for wb in mbs:      # warm every batch shape, as bench.py does
+        m.match_batch(wb)
+    m.add_route("tenant0", mk("bench/churn/warm/+", "w0"))
+    m._flush_patches()
+    m.match_batch(mbs[0])
+    compiles0 = m.compile_count
+    fallbacks0, flushes0 = m.patch_fallbacks, m.patch_flushes
+    D.reset_launches()
+    patch_s, unsub_s, match_s, added = [], [], [], []
+    for i in range(CHURN_OPS):
+        tf = f"bench/churn/{i}/+"
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        m.add_route("tenant0", mk(tf, f"c{i}", inc=1))
+        m._flush_patches()
+        torch.cuda.synchronize()
+        patch_s.append(time.perf_counter() - t0)
+        added.append((tf, f"c{i}"))
+        if i % 8 == 4:
+            t0 = time.perf_counter()
+            m.match_batch(mbs[(i // 8) % 8])
+            torch.cuda.synchronize()
+            match_s.append(time.perf_counter() - t0)
+    for tf, rid in added[:CHURN_OPS // 2]:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        m.remove_route("tenant0", RouteMatcher.from_topic_filter(tf),
+                       (0, rid, "d0"), incarnation=1)
+        m._flush_patches()
+        torch.cuda.synchronize()
+        unsub_s.append(time.perf_counter() - t0)
+    launches = {k: v.launches for k, v in D.KERNELS.items()}
+    base, dev = m._base_ct, m._device_trie
+    host = {"node_tab": base.node_tab, "edge_tab": base.edge_tab,
+            "child_list": base.child_list,
+            "count_tab": M.count_cols_from_node_tab(base.node_tab),
+            "route_tab": M.route_cols_from_node_tab(base.node_tab)}
+    unequal = [k for k, a in host.items()
+               if not (tuple(getattr(dev, k).shape) == a.shape
+                       and (getattr(dev, k).cpu().numpy() == a).all())]
+    probe = [("tenant0", t) for t in topics[:ORACLE_SAMPLE]]
+    probe += [("tenant0", f"bench/churn/{i}/x")
+              for i in range(0, CHURN_OPS, 7)]
+    got = m.match_batch(probe)
+    want = m.match_from_tries(probe)
+    bad = [i for i, (a, b) in enumerate(zip(got, want))
+           if canon(a) != canon(b)]
+    out = {"phase": "churn", "card": smi, "subs": N_SUBS,
+           "subscribes": CHURN_OPS, "unsubscribes": CHURN_OPS // 2,
+           "match_batch": CHURN_BATCH,
+           "patch_apply_ms": _pcts(patch_s), "unsubscribe_ms": _pcts(unsub_s),
+           "match_ms_during_churn": _pcts(match_s),
+           "full_rebuild_s": m.compile_time_s,
+           "full_compiles_in_window": m.compile_count - compiles0,
+           "patch_fallbacks": m.patch_fallbacks - fallbacks0,
+           "patch_flushes": m.patch_flushes - flushes0,
+           "patch": base.patch_stats(), "launches": launches,
+           "tables_unequal": unequal, "oracle_rows_checked": len(probe),
+           "oracle_rows_differing": len(bad)}
+    print(json.dumps(out), flush=True)
+    if m.compile_count != compiles0:
+        raise AssertionError("the churn window ran a full compile")
+    if unequal:
+        raise AssertionError(f"patched device tables differ from the host "
+                             f"arenas: {unequal}")
+    if not launches["fused_walk"]:
+        raise AssertionError("the walk never launched during churn")
+    if bad:
+        raise AssertionError(f"churn rows {bad[:8]} differ from the oracle")
+    return out
+
+
+def cache_phase(torch, D, mp, queries, miss_ms, smi):
+    """The match-result cache on the 100K-subscription matcher (cache on,
+    the port's default): the peers phase's batch served again launches
+    no kernel and returns the very same results; then an exact-filter
+    subscribe re-walks only the rows of its topic, and a wildcard
+    subscribe every row of the tenant, each checked against the host
+    oracle."""
+    from bifromq_tpu_torch.models.oracle import Route
+    from bifromq_tpu_torch.types import RouteMatcher
+    first = mp.match_batch(queries)       # the peers phase's results
+    D.reset_launches()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    again = mp.match_batch(queries)
+    hit_ms = (time.perf_counter() - t0) * 1e3
+    hit_launches = {k: v.launches for k, v in D.KERNELS.items()}
+    same = all(a is b for a, b in zip(again, first))
+    out = {"phase": "cache", "card": smi, "rows": len(queries),
+           "unique_rows": len(set(queries)), "miss_batch_ms": miss_ms,
+           "hit_batch_ms": hit_ms, "hit_launches": hit_launches,
+           "hit_results_identical": same}
+    if any(hit_launches.values()) or not same:
+        print(json.dumps(out), flush=True)
+        raise AssertionError("a repeated batch reached the card or "
+                             "changed its results")
+    for name, tf in (("exact", queries[0][1]), ("wildcard", "+/#")):
+        mp.add_route("tenant0", Route(
+            matcher=RouteMatcher.from_topic_filter(tf), broker_id=0,
+            receiver_id=f"cache-{name}", deliverer_key="srv0|cache"))
+        D.reset_launches()
+        res = mp.match_batch(queries)
+        launched = {k: v.launches for k, v in D.KERNELS.items()}
+        pairs, _ = mp.last_expanded
+        rewalked = [i for i, (a, b) in enumerate(zip(res, first))
+                    if a is not b]
+        check = rewalked[:ORACLE_SAMPLE]
+        oracle = mp.match_from_tries([queries[i] for i in check])
+        bad = [i for i, o in zip(check, oracle) if canon(res[i]) != canon(o)]
+        touched = [i for i, q in enumerate(queries) if q[1] == tf]
+        out[name] = {"filter": tf, "rows_rewalked": len(rewalked),
+                     "device_rows": int(pairs.trunc.shape[-1]),
+                     "launches": launched, "oracle_rows_checked": len(check),
+                     "oracle_rows_differing": len(bad)}
+        first = res
+        if bad or not launched["fused_walk"] or (
+                name == "exact" and rewalked != touched) or (
+                name == "wildcard" and len(rewalked) != len(queries)):
+            print(json.dumps(out), flush=True)
+            raise AssertionError(f"cache invalidation by a {name} "
+                                 f"subscribe went wrong")
+    from bifromq_tpu_torch.utils.metrics import MATCH_CACHE
+    out["cache"] = mp.match_cache.snapshot()
+    out["metrics"] = MATCH_CACHE.snapshot()
+    print(json.dumps(out), flush=True)
+    return out
 
 
 def main() -> int:
@@ -918,6 +1233,7 @@ def main() -> int:
     except ImportError as e:
         return fail(f"the bifromq_tpu_torch package is missing: {e!r}")
 
+    t_start = time.perf_counter()
     dev = torch.device("cuda")
     smi = smi_line()
     print(smi, flush=True)
@@ -934,10 +1250,13 @@ def main() -> int:
     tries = workloads.config_wildcard(N_SUBS, seed=0)
     gen_s = time.perf_counter() - t0
     t0 = time.perf_counter()
-    m = TorchMatcher.from_tries(tries, device=dev)
+    # cache off, as bench.py's config 2: every batch reaches the card
+    m = TorchMatcher.from_tries(tries, device=dev, match_cache=False)
     ct, trie = m.compiled, m.device_trie
     print(json.dumps({"phase": "compile", "subs": N_SUBS,
-                      "nodes": int(ct.n_nodes), "slots": int(ct.n_slots),
+                      "nodes": int(ct.n_live),
+                      "node_capacity": int(ct.n_nodes),
+                      "slots": int(ct.n_slots),
                       "generate_s": gen_s,
                       "compile_s": time.perf_counter() - t0}), flush=True)
     root = ct.root_of("tenant0")
@@ -946,6 +1265,7 @@ def main() -> int:
     # ---- K1: BLAKE2b level hashing ----------------------------------------
     k1_err, rows["blake2b_levels"] = k1_phase(torch, T, workloads, TopicBytes,
                                               ct, root, dev, smi)
+    k1_err = max(k1_err, k1_wide_phase(torch, T, TopicBytes, dev, smi))
 
     # ---- K2: fused interval walk ------------------------------------------
     topics = ["/".join(t) for t in workloads.probe_topics(B_CHECK, seed=1)]
@@ -975,6 +1295,8 @@ def main() -> int:
                       "unique_buckets": r["unique_buckets"],
                       "row_visits": r["row_visits"],
                       "bucket_visits": r["bucket_visits"]}), flush=True)
+    k2_err = max(k2_err, k2_budgets_phase(torch, K, M, D, workloads, trie,
+                                          probes, dev, smi))
 
     # ---- K3: ragged-arange expansion --------------------------------------
     k3_err = k3_adversarial(torch, K, M, dev)
@@ -1051,6 +1373,9 @@ def main() -> int:
     print(json.dumps({"phase": "stages", "batch": B_SERVE, "card": smi,
                       **stages}), flush=True)
 
+    # ---- churn: in-place patching under subscription churn (config 8) ----
+    churn_phase(torch, M, D, workloads, m, smi)
+
     # ---- peers: per-peer bucketing on the card ----------------------------
     t0 = time.perf_counter()
     mp = TorchMatcher.from_tries(workloads.config_wildcard(
@@ -1059,7 +1384,11 @@ def main() -> int:
     topics = ["/".join(t) for t in workloads.probe_topics(B_SERVE, seed=7)]
     queries = [("tenant0", t) for t in topics]
     D.reset_launches()
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
     res = mp.match_batch(queries)
+    torch.cuda.synchronize()
+    miss_ms = (time.perf_counter() - t1) * 1e3
     peer_launches = {k: v.launches for k, v in D.KERNELS.items()}
     pairs, peer_tab = mp.last_expanded
     if peer_tab.n_peers != 8:
@@ -1080,6 +1409,9 @@ def main() -> int:
                       "bucket_sizes": np.diff(pairs.peer_offsets).tolist(),
                       "launches": peer_launches,
                       "seconds": time.perf_counter() - t0}), flush=True)
+
+    # ---- cache: the match-result cache front end on that matcher ----------
+    cache_phase(torch, D, mp, queries, miss_ms, smi)
 
     rows["ring_hop"], k4_err = ring_phase(torch, K, dev)
     k4_host_split(torch, K, D, dev, smi)
@@ -1108,6 +1440,8 @@ def main() -> int:
                     "plain_ms": r["plain_ms"], "bound_ms": bound_ms(r),
                     "bound_by": bound_by(r),
                     "library_ms": r.get("library_ms")})
+    print(json.dumps({"phase": "total",
+                      "seconds": time.perf_counter() - t_start}), flush=True)
     print(json.dumps({"kernels": out}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

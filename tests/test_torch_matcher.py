@@ -1,15 +1,14 @@
 """Port parity: TorchMatcher against TpuMatcher, and the import boundary.
 
-``TorchMatcher(device="cpu")`` (plain versions of all three kernels) and
-the reference ``TpuMatcher(match_cache=False)`` take one randomized query
-stream with add/remove churn, ``$share`` groups, fan-out caps, an unknown
-tenant, small walk budgets (so escalation and the oracle fallback run)
-and a small expansion buffer (so truncated rows re-expand on the host).
-Both run the overlay + compaction path (the reference with
-``BIFROMQ_PATCH=0``; the port does not patch in place yet). Every query's
-``MatchedRoutes`` must be identical as normalized tuples, in order, and
-the device-bucketed ``last_expanded`` pairs must be array-equal.
-Tolerance: exact equality.
+``TorchMatcher(device="cpu", match_cache=False)`` (plain versions of all
+three kernels) and the reference ``TpuMatcher(match_cache=False)`` take
+one randomized query stream with add/remove churn, ``$share`` groups,
+fan-out caps, an unknown tenant, small walk budgets (so escalation and
+the oracle fallback run) and a small expansion buffer (so truncated rows
+re-expand on the host). Both run their default mutation path: in-place
+patching of the base arenas. Every query's ``MatchedRoutes`` must be
+identical as normalized tuples, in order, and the device-bucketed
+``last_expanded`` pairs must be array-equal. Tolerance: exact equality.
 """
 
 import os
@@ -87,10 +86,10 @@ def _check_round(ref, port, queries, **caps):
 
 
 def test_torch_matcher_equals_tpu_matcher_under_churn(monkeypatch):
-    monkeypatch.setenv("BIFROMQ_PATCH", "0")
     monkeypatch.setenv("BIFROMQ_EXPAND_CAP", "1")
-    kw = dict(k_states=4, max_intervals=4, auto_compact=False)
-    ref = TpuMatcher(match_cache=False, **kw)
+    kw = dict(k_states=4, max_intervals=4, auto_compact=False,
+              match_cache=False)
+    ref = TpuMatcher(**kw)
     port = TorchMatcher(device="cpu", **kw)
     rng = random.Random(0)
     specs = [_route_spec(rng, i) for i in range(160)]
@@ -120,7 +119,9 @@ def test_torch_matcher_equals_tpu_matcher_under_churn(monkeypatch):
             ref.refresh()
             port.refresh()
             assert port.overlay_size == 0
-    assert port.compile_count == 2
+    # every mutation was patched in place: the refreshes rebuilt nothing
+    assert port.compile_count == ref.compile_count == 1
+    assert port.patch_count == ref.patch_count > 0
     # the walk-overflow (escalation) and buffer-truncation legs both ran
     assert any(o for o, _ in seen) and any(t for _, t in seen)
 
@@ -137,10 +138,17 @@ import sys
 from bifromq_tpu_torch import workloads
 from bifromq_tpu_torch.models.matcher import TorchMatcher
 import bifromq_tpu_torch.models.state, bifromq_tpu_torch.dist.deliverer
+import bifromq_tpu_torch.models.matchcache, bifromq_tpu_torch.utils.metrics
+from bifromq_tpu_torch.models.oracle import Route
+from bifromq_tpu_torch.types import RouteMatcher
 m = TorchMatcher.from_tries(workloads.config_wildcard(500, seed=0),
                             device="cpu")
 topics = ["/".join(t) for t in workloads.probe_topics(32, seed=1)]
+m.add_route("tenant0", Route(RouteMatcher.from_topic_filter(topics[0]), 0,
+                             "patched", "d0", 0))
+assert m.patch_count == 1 and m.overlay_size == 0
 res = m.match_batch([("tenant0", t) for t in topics])
+assert m.match_batch([("tenant0", t) for t in topics])[0] is res[0]
 oracle = m.match_from_tries([("tenant0", t) for t in topics])
 assert [len(r.all_routes()) for r in res] == \
     [len(r.all_routes()) for r in oracle]

@@ -147,7 +147,8 @@ def _set_expand_cap(mp, keys):
 def _port(keys, shape, monkeypatch):
     _set_expand_cap(monkeypatch, keys)
     return ts.TorchMeshMatcher(
-        _tries(tw, keys), mesh=ts.make_mesh(*shape, device="cpu"), **KW)
+        _tries(tw, keys), mesh=ts.make_mesh(*shape, device="cpu"),
+        match_cache=False, **KW)
 
 
 def _assert_same(ref, got, shape):

@@ -96,6 +96,25 @@ def test_plain_walk_equals_lax_walk(seed, k, a):
         assert np.asarray(ref.overflow).any()   # overflow rows exercised
 
 
+# every state budget K and interval budget A that the reference's tests
+# reach: primaries K in {2, 4, 6, 8, 16, 32} x A in {1, ..., 32}, and their
+# escalations (min(4K, 128), max(min(4A, 256), A)), K = 24 and 256-wide A
+# included — each K and each A at least once
+BUDGETS = [(2, 1), (4, 2), (6, 4), (8, 8), (16, 16), (8, 4), (16, 8),
+           (24, 16), (24, 32), (64, 128), (128, 256)]
+
+
+@pytest.mark.parametrize("k,a", BUDGETS, ids=lambda v: str(v))
+def test_plain_walk_equals_lax_walk_at_every_budget(k, a):
+    tries, topics = _world(11)
+    ct, tok = _tables(tries, topics)
+    kw = dict(probe_len=ct.probe_len, k_states=k, max_intervals=a)
+    ref = jm.walk_routes(jm.DeviceTrie.from_compiled(ct),
+                         jm.Probes.from_tokenized(tok), esc_k=0, **kw)
+    got = tk.fused_walk_routes(_port_trie(ct), _port_probes(tok), **kw)
+    _assert_equal(ref, got, f"K {k} A {a}")
+
+
 @pytest.mark.parametrize("seed,k,a", [(5, 4, 4)])
 def test_plain_walk_equals_pallas_interpret(seed, k, a):
     tries, topics = _world(seed)
