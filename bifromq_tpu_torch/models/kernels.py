@@ -35,9 +35,14 @@ from ..ops.match import (DeviceTrie, Probes, RouteIntervals, RT_COLS,
                          _expand_pairs, walk_routes)
 from ..utils.device import CudaKernel, check_cuda, ptr, stream_of
 
-# the largest state budget K the walk kernel takes (csrc/fused_walk.cu:
-# K and A are run-time arguments, K in [1, WALK_MAX_K], any A >= 1)
-WALK_MAX_K = 256
+# csrc/fused_walk.cu takes any K >= 1 and A >= 1 at run time; up to this
+# K a warp's states live in registers and shared memory, past it in a
+# global scratch of WALK_SCRATCH_INTS x KC int32 a warp (KC = K rounded up
+# to 32), on at most WALK_SCRATCH_WARPS warps and WALK_SCRATCH_BYTES
+WALK_SHARED_MAX_K = 512
+WALK_SCRATCH_INTS = 14
+WALK_SCRATCH_WARPS = 132 * 16
+WALK_SCRATCH_BYTES = 256 << 20
 # edge-bucket widths P it is instantiated for: one half-warp's int4 loads
 WALK_PROBE_LENS = (16,)
 
@@ -71,6 +76,20 @@ def _walk_blocks_plain(trie: DeviceTrie, probes: Probes, **kw
                                       "overflow")))
 
 
+def _walk_scratch(k_states: int, rows: int, dev: torch.device):
+    """The scratch of the walk kernel's path past ``WALK_SHARED_MAX_K``:
+    ``(int32 tensor, warps)``, one slice a warp, the warps a multiple of
+    4 and no more than the rows need; ``(None, 0)`` at or below it."""
+    if k_states <= WALK_SHARED_MAX_K:
+        return None, 0
+    kc = -(-k_states // 32) * 32
+    per_warp = WALK_SCRATCH_INTS * kc
+    fit = max(4, WALK_SCRATCH_BYTES // (4 * per_warp) // 4 * 4)
+    n_warps = min(-(-rows // 4) * 4, WALK_SCRATCH_WARPS, fit)
+    return torch.empty(n_warps * per_warp, dtype=torch.int32,
+                       device=dev), n_warps
+
+
 def fused_walk_routes(trie: DeviceTrie, probes: Probes, *, probe_len: int,
                       k_states: int = 32,
                       max_intervals: int = 32) -> RouteIntervals:
@@ -91,9 +110,9 @@ def fused_walk_routes(trie: DeviceTrie, probes: Probes, *, probe_len: int,
         if batched:
             return _walk_blocks_plain(trie, probes, **kw)
         return walk_routes(trie, probes, esc_k=0, **kw)
-    if not (1 <= k_states <= WALK_MAX_K and max_intervals >= 1):
-        raise ValueError(f"walk kernel takes 1 <= K <= {WALK_MAX_K} and "
-                         f"A >= 1, not (K={k_states}, A={max_intervals})")
+    if not (k_states >= 1 and max_intervals >= 1):
+        raise ValueError(f"walk kernel takes K >= 1 and A >= 1, not "
+                         f"(K={k_states}, A={max_intervals})")
     if probe_len not in WALK_PROBE_LENS:
         raise ValueError(f"walk kernel has no bucket width P={probe_len} "
                          f"instance; have {WALK_PROBE_LENS}")
@@ -121,12 +140,14 @@ def fused_walk_routes(trie: DeviceTrie, probes: Probes, *, probe_len: int,
     n_routes = torch.empty(lead, dtype=torch.int32, device=dev)
     overflow = torch.empty(lead, dtype=torch.bool, device=dev)
     if g and b:
+        scratch, n_warps = _walk_scratch(k_states, g * b, dev)
         FUSED_WALK.launch(
             stream_of(probes.tok_h1), ptr(edge), ptr(route), s, nb,
             probe_len, n, w, ptr(probes.tok_h1), ptr(probes.tok_h2),
             ptr(probes.lengths), ptr(probes.roots), ptr(probes.sys_mask),
             g, b, k_states, ptr(ivl_s), ptr(ivl_c), ptr(n_routes),
-            ptr(overflow), max_intervals)
+            ptr(overflow), max_intervals,
+            0 if scratch is None else ptr(scratch), n_warps)
     return RouteIntervals(start=ivl_s, count=ivl_c, n_routes=n_routes,
                           overflow=overflow)
 

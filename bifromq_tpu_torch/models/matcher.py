@@ -1,6 +1,8 @@
 """TorchMatcher: the match plane — compile, walk and expand on the card.
 
-Port of the sync serving leg of ``bifromq_tpu/models/matcher.TpuMatcher``.
+Port of ``bifromq_tpu/models/matcher.TpuMatcher``'s serving legs: the
+sync ``match_batch`` and the pipelined, failure-bounded
+``match_batch_async``.
 Authoritative subscription state lives in host-side per-tenant tries;
 a compiled automaton snapshot serves batched match queries on the device
 through three kernels — the BLAKE2b level hash, the fused interval walk
@@ -30,12 +32,21 @@ Mutation → visibility:
   ``compact_threshold`` ops or when dead and relocated slots fragment
   the arena (``PatchableTrie.frag_pending``).
 
-The fetch is the synchronization: a ``.cpu()`` readback of the result
-tensors.
+Serving legs: ``match_batch`` prepares, dispatches, waits on the
+result's readiness and fetches back to back; ``match_batch_async`` runs
+the same stages through the bounded dispatch ring
+(``models/pipeline.DispatchRing``), awaiting readiness on the event loop
+so batch N+1 prepares and dispatches while batch N is in flight. A
+result's readiness is a CUDA event recorded after its device→host copies
+into pinned buffers (``ops/match.HostFetch``); the fetch reads those
+buffers. Both legs sit behind the device breaker and the readiness
+watchdog (``resilience/device.py``): a hung, failing or lying card
+degrades the batch to the exact host oracle, counted, never silently.
 """
 
 from __future__ import annotations
 
+import asyncio
 import logging
 import threading
 import time
@@ -45,12 +56,18 @@ import numpy as np
 import torch
 
 from ..utils import topic as topic_util
-from ..utils.device import resolve_device
+from ..utils.device import KernelLaunchError, resolve_device
+from ..utils.metrics import STAGES
 from ..types import RouteMatcherType
 from .automaton import (CompiledTrie, GroupMatching, Matching, PatchableTrie,
                         PatchFallback, TokenCache, compile_tries, tokenize)
 from .oracle import (PERSISTENT_SUB_BROKER_ID, UNCAPPED_FANOUT,
                      MatchedRoutes, Route, SubscriptionTrie)
+
+# what the serving legs raise to their caller instead of serving the host
+# oracle: a kernel that refused to launch and a wrapper's argument check
+# are faults of the program, and degrading around them would hide them
+_PROGRAM_FAULTS = (KernelLaunchError, ValueError)
 
 
 def _pow2_batch(n: int, floor: int = 16) -> int:
@@ -86,9 +103,10 @@ _TombKey = Tuple[str, Tuple[int, str, str]]
 
 class _Prepared:
     """Stage-0 output: a tokenized + uploaded probe batch, with the base
-    snapshot it tokenized against."""
+    snapshot it tokenized against and the seconds the prep took."""
 
-    __slots__ = ("queries", "ct", "tok", "probes", "roots", "batch")
+    __slots__ = ("queries", "ct", "tok", "probes", "roots", "batch",
+                 "tokenize_s")
 
     def __init__(self, **kw) -> None:
         for k, v in kw.items():
@@ -98,12 +116,16 @@ class _Prepared:
 class _InFlight:
     """Captured dispatch state for one device batch: expansion runs
     against the SNAPSHOT the walk dispatched on (base tables and overlay
-    dict objects), never a base a compaction swapped in meanwhile."""
+    dict objects), never a base a compaction swapped in meanwhile. With
+    batches in flight, a patch flush writes new table tensors
+    (``_flush_patches``), so ``dev`` stays the tables this batch was
+    dispatched on, for its escalation re-walk too."""
 
     __slots__ = ("queries", "ct", "dev", "tok", "roots", "res", "tomb",
-                 "delta", "batch", "peer_tab")
+                 "delta", "batch", "peer_tab", "fault")
 
     def __init__(self, **kw) -> None:
+        self.fault = None   # a fired device FaultRule (the chaos hook)
         for k, v in kw.items():
             setattr(self, k, v)
 
@@ -126,6 +148,14 @@ def _host(t: torch.Tensor) -> np.ndarray:
     return t.cpu().numpy().copy()
 
 
+def _canon(m: MatchedRoutes):
+    """Row identity for the canary's parity check: receivers and groups."""
+    return (sorted((r.matcher.mqtt_topic_filter, r.receiver_url)
+                   for r in m.normal),
+            {f: sorted(r.receiver_url for r in ms)
+             for f, ms in m.groups.items()})
+
+
 def apply_log_op(tries: Dict[str, SubscriptionTrie], op: Tuple) -> None:
     """Apply ONE matcher log op to a tries dict (the shadow replay)."""
     if op[0] == "add":
@@ -141,6 +171,10 @@ def apply_log_op(tries: Dict[str, SubscriptionTrie], op: Tuple) -> None:
 
 
 class TorchMatcher:
+    # the pipelined leg (match_batch_async) drives _dispatch_prepared
+    # directly; a subclass replacing the whole device plane (the mesh)
+    # turns this off and the async entry takes its sync leg
+    supports_async = True
     # single-table bases are PatchableTrie and mutations fold into the
     # arenas in place; a subclass whose compile target is not one
     # CompiledTrie (the mesh's stacked shards) turns this off and keeps
@@ -159,10 +193,16 @@ class TorchMatcher:
         self.max_intervals = max_intervals
         self.device = resolve_device(device)
         if self.device.type == "cuda":
-            from .kernels import WALK_PROBE_LENS
+            from ..ops.tokenize import BLAKE2B
+            from ..utils.device import build_all
+            from .kernels import EXPAND, FUSED_WALK, WALK_PROBE_LENS
             if probe_len not in WALK_PROBE_LENS:
                 raise ValueError(f"the walk kernel has no bucket width "
                                  f"{probe_len}; have {WALK_PROBE_LENS}")
+            # the serving path's kernels load here, so a build or load
+            # failure raises before any batch is served and can never
+            # reach the device leg's degrade-to-oracle boundary
+            build_all([BLAKE2B, FUSED_WALK, EXPAND])
         self.auto_compact = auto_compact
         self.compact_threshold = compact_threshold
         # authoritative state (exact guards; host fallback matches)
@@ -182,6 +222,17 @@ class TorchMatcher:
         from .matchcache import TenantMatchCache
         self.match_cache = (TenantMatchCache(scope="matcher")
                             if match_cache else None)
+        # the async dispatch ring, made at the first async match (see
+        # models/pipeline.py for the knobs)
+        self._ring = None
+        # the device circuit breaker, fed by device timeouts and errors:
+        # open serves the exact host oracle with no dispatch at all,
+        # half-open admits ONE canary batch that re-closes only on row
+        # parity with the oracle
+        from ..resilience.device import (DEVICE_BREAKERS,
+                                         device_breaker_enabled)
+        self.device_breaker = (DEVICE_BREAKERS.create()
+                               if device_breaker_enabled() else None)
         # mutation log since the shadow copy last synced; shadow is the
         # frozen snapshot source for off-thread compiles
         self._log: List[Tuple] = []
@@ -197,11 +248,13 @@ class TorchMatcher:
         self._peer_cache: Optional[Tuple] = None
         self.last_expanded = None
         # patch-plane accounting: mutations folded into the base in place,
-        # ops the patcher declined (overlaid), device flushes and the
+        # ops the patcher declined (overlaid), device flushes (and those
+        # that wrote new tensors because a batch was in flight) and the
         # cumulative host (plan + arena) and device-write seconds
         self.patch_count = 0
         self.patch_fallbacks = 0
         self.patch_flushes = 0
+        self.patch_flushes_undonated = 0
         self.patch_host_s = 0.0
         self.patch_device_s = 0.0
 
@@ -323,27 +376,36 @@ class TorchMatcher:
         self.patch_host_s += time.perf_counter() - t0
         return True
 
-    def _flush_patches(self) -> None:
+    def _flush_patches(self, own_slots: int = 0) -> None:
         """Ship the host patches accumulated since the last flush to the
         device tables as narrow row writes (coalesced: at most one flush
         per dispatch, however many mutations landed since).
 
-        The writes go into the serving tables in place (``donate``): the
-        sync serving leg is the only one ported, and it reads back every
-        batch's results before it returns, so no dispatched walk can
-        still be reading the old tables here. The async pipeline ring
-        (ROADMAP A.7) must bring the reference's condition with it —
-        donate only while no other slot is in flight and the quarantine
-        is empty, otherwise write new tensors."""
+        The writes go into the serving tables in place (``donate``) only
+        while no dispatched batch can still read them: no ring slot in
+        flight beyond ``own_slots`` (the slots the CALLER holds — the
+        async leg acquires before dispatching, so its own not-yet-
+        dispatched slot counts in ``in_flight`` but reads nothing yet)
+        and an empty quarantine (timed-out or cancelled batches park
+        there while the card may still run them). Otherwise the flush
+        writes new table tensors, so a batch in flight — its escalation
+        re-walk included, which runs after the fetch and after this
+        flush on the stream — keeps the tables it was dispatched on.
+        Only the serving thread flushes, always before its own
+        dispatch."""
         base = self._base_ct
         if not isinstance(base, PatchableTrie) or not base.dirty \
                 or self._device_trie is None:
             return
         from ..ops.match import patch_device_trie
+        ring = self._ring
+        donate = ring is None or (ring.in_flight <= own_slots
+                                  and not len(ring.quarantine))
         t0 = time.perf_counter()
         self._device_trie, _ = patch_device_trie(
-            self._device_trie, base, device=self.device, donate=True)
+            self._device_trie, base, device=self.device, donate=donate)
         self.patch_flushes += 1
+        self.patch_flushes_undonated += not donate
         self.patch_device_s += time.perf_counter() - t0
 
     def _overlay_record(self, op: Tuple) -> None:
@@ -520,13 +582,16 @@ class TorchMatcher:
     def match_batch(self, queries: Sequence[Tuple[str, Sequence[str]]],
                     *, max_persistent_fanout: int = UNCAPPED_FANOUT,
                     max_group_fanout: int = UNCAPPED_FANOUT,
-                    batch: Optional[int] = None) -> List[MatchedRoutes]:
+                    batch: Optional[int] = None,
+                    stats: Optional[dict] = None) -> List[MatchedRoutes]:
         """Match (tenant_id, topic) pairs; returns per-query routes.
 
         The cache front end: a per-query cache probe, then in-batch
         dedup, so N identical (tenant, topic) rows walk once and only the
         unique misses reach ``_match_batch_device``. Cached and fanned-out
         results are shared objects: callers treat them as read-only.
+        ``stats["degraded"]`` names the reason when the device leg served
+        the batch from the host oracle.
         """
         if not queries:
             return []
@@ -534,7 +599,7 @@ class TorchMatcher:
         if cache is None:
             return self._match_batch_device(
                 queries, max_persistent_fanout=max_persistent_fanout,
-                max_group_fanout=max_group_fanout, batch=batch)
+                max_group_fanout=max_group_fanout, batch=batch, stats=stats)
         # fold any finished background compaction in BEFORE probing: its
         # generation bump must land before this batch's token snapshots
         self._apply_pending_swap()
@@ -544,7 +609,7 @@ class TorchMatcher:
         if uniq_queries:
             res = self._match_batch_device(
                 uniq_queries, max_persistent_fanout=max_persistent_fanout,
-                max_group_fanout=max_group_fanout, batch=batch)
+                max_group_fanout=max_group_fanout, batch=batch, stats=stats)
             self._frontend_fill(out, res, uniq, miss_rows, tokens, caps)
         self._frontend_metrics(len(queries), uniq_queries, miss_rows)
         return out
@@ -592,25 +657,342 @@ class TorchMatcher:
             MATCH_CACHE.record_dedup(len(uniq_queries),
                                      len(miss_rows) - len(uniq_queries))
 
+    # ---------------- async device pipeline -------------------------------
+    # (the reference's trace spans and OBS hooks at the sites below — ring
+    # registration, per-batch profiler records, the e2e degraded map — are
+    # ROADMAP A.10)
+
+    def _pipeline_ring(self):
+        if self._ring is None:
+            from .pipeline import DispatchRing
+            self._ring = DispatchRing()
+            # OBS.device.register_ring: ROADMAP A.10
+        return self._ring
+
+    async def drain_device(self, timeout_s: Optional[float] = None) -> bool:
+        """Graceful drain: wait bounded for in-flight device batches to
+        retire, then sweep the quarantine. Returns whether the ring
+        actually went idle."""
+        ring = self._ring
+        if ring is None:
+            return True
+        from ..resilience.device import drain_timeout_s
+        if timeout_s is None:
+            timeout_s = drain_timeout_s()
+        idle = await ring.wait_idle(timeout_s)
+        ring.quarantine.sweep()
+        return idle
+
+    async def match_batch_async(self, queries, *,
+                                max_persistent_fanout: int = UNCAPPED_FANOUT,
+                                max_group_fanout: int = UNCAPPED_FANOUT,
+                                batch: Optional[int] = None,
+                                stats: Optional[dict] = None,
+                                **device_kw) -> List[MatchedRoutes]:
+        """Pipelined serving path: same results as ``match_batch``, but
+        the device walk is dispatched through the bounded in-flight ring
+        and awaited on READINESS — batch N+1 prepares and enqueues while
+        batch N is still walking, and the event loop keeps serving between
+        readiness polls instead of blocking inside a synchronize.
+
+        ``stats`` (optional dict) receives ``device_s``: THIS batch's own
+        match cost — cache probe + dispatch, ready, fetch + host expansion
+        and cache fill — minus the ring-acquire wait (queue time, not
+        match cost). ``stats["degraded"]`` carries the reason when the
+        batch was served from the host oracle (breaker open, watchdog
+        timeout, device error, canary parity).
+
+        Takes the sync path when the pipeline is disabled
+        (``BIFROMQ_PIPELINE=0``) or the subclass replaced the device plane
+        (``supports_async = False``).
+        """
+        from .pipeline import pipeline_enabled
+        if not queries:
+            return []
+        if not (self.supports_async and pipeline_enabled()):
+            return self.match_batch(
+                queries, max_persistent_fanout=max_persistent_fanout,
+                max_group_fanout=max_group_fanout, batch=batch,
+                stats=stats, **device_kw)
+        if device_kw:
+            raise TypeError("match_batch_async got unsupported kwargs: "
+                            f"{sorted(device_kw)}")
+        caps = (max_persistent_fanout, max_group_fanout)
+        cache = self.match_cache
+        t_front = time.perf_counter()
+        if cache is not None:
+            self._apply_pending_swap()
+            out, uniq, uniq_queries, miss_rows, tokens = \
+                self._frontend_probe(queries, caps)
+        else:
+            out = [None] * len(queries)
+            uniq_queries = list(queries)
+        front_s = time.perf_counter() - t_front
+        if stats is not None:
+            # all-hit batches: the cache probe IS the whole match cost
+            stats["device_s"] = front_s
+        if uniq_queries:
+            t_disp = time.perf_counter()
+            res, degraded, acquire_s = await self._device_serve_async(
+                uniq_queries, batch, max_persistent_fanout,
+                max_group_fanout)
+            if cache is not None:
+                self._frontend_fill(out, res, uniq, miss_rows, tokens,
+                                    caps)
+            else:
+                out = res
+            if stats is not None:
+                stats["device_s"] = front_s + (
+                    time.perf_counter() - t_disp - acquire_s)
+                if degraded is not None:
+                    stats["degraded"] = degraded
+        if cache is not None:
+            self._frontend_metrics(len(queries), uniq_queries, miss_rows)
+        return out
+
+    async def _device_serve_async(self, uniq_queries, batch,
+                                  max_persistent_fanout, max_group_fanout):
+        """The failure-bounded device leg of the async path.
+
+        Returns ``(results, degraded_reason, acquire_s)`` —
+        ``degraded_reason`` is None when the device served, else one of
+        ``breaker`` (circuit open: dispatch skipped entirely), ``timeout``
+        (watchdog fired: the ring slot was reclaimed, the orphaned result
+        quarantined), ``device_error`` (dispatch or fetch raised) or
+        ``canary_parity`` (the half-open canary's rows differed from the
+        oracle's); ``acquire_s`` is the ring-acquire wait the caller
+        subtracts from its device-time accounting. Every degraded serve
+        comes from ``match_from_tries`` — the authoritative host oracle,
+        exact by construction — and counts in ``FABRIC``
+        ``MATCH_DEGRADED``. The kernels are loaded when the matcher is
+        made, so a kernel that fails to build never reaches this
+        boundary."""
+        from ..resilience.device import DeviceTimeoutError
+        from ..utils.metrics import FABRIC, FabricMetric
+        br = self.device_breaker
+        verdict = br.admit() if br is not None else "ok"
+        reason = None
+        oracle_rows = None
+        timing = {"acquire_s": 0.0}
+        if verdict == "rejected":
+            reason = "breaker"
+        else:
+            settled = False
+            try:
+                res = await self._device_leg_async(
+                    uniq_queries, batch, max_persistent_fanout,
+                    max_group_fanout, timing)
+                oracle_rows = self._settle_breaker(
+                    verdict, uniq_queries, res, max_persistent_fanout,
+                    max_group_fanout)
+                settled = True
+                if oracle_rows is None:
+                    return res, None, timing["acquire_s"]
+                reason = "canary_parity"
+            except DeviceTimeoutError as e:
+                FABRIC.inc(FabricMetric.DEVICE_TIMEOUT)
+                if br is not None:
+                    br.record_failure(repr(e))
+                    settled = True
+                reason = "timeout"
+            except (asyncio.CancelledError, *_PROGRAM_FAULTS):
+                raise
+            except Exception as e:  # noqa: BLE001 — degrade, don't fail
+                if br is not None:
+                    br.record_failure(repr(e))
+                    settled = True
+                logging.getLogger(__name__).warning(
+                    "device match failed; serving host oracle: %r", e)
+                reason = "device_error"
+            finally:
+                if br is not None and verdict == "canary" and not settled:
+                    # cancelled (or a program fault) mid-probe with no
+                    # verdict: the half-open budget must not leak or the
+                    # breaker wedges refusing
+                    br.release_probe()
+        FABRIC.inc(FabricMetric.MATCH_DEGRADED, len(uniq_queries))
+        # OBS.profiler.record_batch and the "match.degraded" span: A.10
+        if oracle_rows is None:
+            oracle_rows = self.match_from_tries(
+                uniq_queries, max_persistent_fanout=max_persistent_fanout,
+                max_group_fanout=max_group_fanout)
+        return oracle_rows, reason, timing["acquire_s"]
+
+    def _settle_breaker(self, verdict, queries, rows,
+                        max_persistent_fanout, max_group_fanout):
+        """Feed the device breaker a batch the card served, on either
+        leg. A half-open canary must match the host oracle row for row
+        (``_canary_parity``); an "ok"-admitted batch completing while the
+        breaker is no longer closed is a pre-trip straggler, whose success
+        must not close the circuit past the canary's parity bar. Returns
+        the oracle rows when the canary failed parity, else None."""
+        br = self.device_breaker
+        if br is None:
+            return None
+        if verdict == "canary":
+            ok, oracle_rows = self._canary_parity(
+                queries, rows, max_persistent_fanout, max_group_fanout)
+            if ok:
+                br.record_success()
+                return None
+            br.record_failure("canary row parity")
+            return oracle_rows
+        if br.state == "closed":
+            br.record_success()
+        return None
+
+    async def _device_leg_async(self, uniq_queries, batch,
+                                max_persistent_fanout, max_group_fanout,
+                                timing=None):
+        """dispatch → fetch-on-ready → expand through the bounded ring,
+        with the watchdog armed on the readiness wait. A timeout RECLAIMS
+        the slot: the ring releases it at once (the next batch keeps
+        flowing) and the orphaned result — device tensors and pinned
+        buffers the card may still be writing — goes to quarantine until
+        its event completes. ``timing["acquire_s"]`` reports the
+        ring-acquire wait (queue time, not match cost) even when the leg
+        later raises."""
+        from ..resilience.device import DeviceTimeoutError
+        ring = self._pipeline_ring()
+        # stage-1 prep (hash + probe upload) runs BEFORE ring admission:
+        # batch N+1 prepares while batch N is still walking, and a full
+        # ring stalls only the enqueue. Prep tickets (depth + 1) bound the
+        # probe batches resident on the card. The dispatch half re-preps
+        # iff a compaction swapped the base during the admission wait.
+        t_acq = time.perf_counter()
+        await ring.acquire_prep()
+        try:
+            if batch is None:
+                # queue-depth-adaptive pow2 floor: idle ring ⇒ small pad
+                # to cut time-to-first-result, busy ring ⇒ the
+                # throughput floor
+                batch = _pow2_batch(len(uniq_queries),
+                                    floor=ring.planned_floor())
+            prep = self._prepare_probes(uniq_queries, batch)
+            await ring.acquire()
+            if timing is not None:
+                # queue time: prep-ticket wait + slot wait, minus the
+                # prep work itself (match cost, in the tokenize stage)
+                timing["acquire_s"] = max(
+                    0.0, time.perf_counter() - t_acq - prep.tokenize_s)
+            try:
+                fl = self._dispatch_prepared(prep, donate=True,
+                                             watchdogged=True)
+                ring.start_fetch(fl.res)
+                t0 = time.perf_counter()
+                try:
+                    await ring.wait_ready(fl.res, fault=fl.fault)
+                except DeviceTimeoutError:
+                    ring.reclaim(fl.res)
+                    # OBS.e2e.set_degraded: ROADMAP A.10
+                    raise
+                except BaseException:
+                    # cancelled mid-wait (caller timeout, client
+                    # disconnect): the result may still be in flight —
+                    # park it like a timeout does, minus the timeout
+                    # accounting
+                    ring.quarantine.add(fl.res)
+                    raise
+                STAGES.record("device.ready", time.perf_counter() - t0)
+                # OBS.e2e.clear_degraded: ROADMAP A.10
+            finally:
+                ring.release()
+        finally:
+            # held for the WHOLE slot tenure: tickets bound prepped +
+            # in-flight batches together at depth + 1
+            ring.release_prep()
+        t0 = time.perf_counter()
+        overflow, pairs = self._fetch_walk(fl.res)
+        STAGES.record("device.fetch", time.perf_counter() - t0)
+        # OBS.profiler.record_batch: ROADMAP A.10
+        return self._expand_walk(fl, overflow, pairs, max_persistent_fanout,
+                                 max_group_fanout)
+
+    def _canary_parity(self, queries, device_rows,
+                       max_persistent_fanout, max_group_fanout):
+        """Half-open success bar: the canary batch's device rows must be
+        row-identical to the host oracle (receivers + groups per row) —
+        a card that returns plausible-but-wrong rows after a fault must
+        NOT re-close the breaker. Returns ``(ok, oracle_rows)`` so a
+        failed parity check serves the oracle rows already computed."""
+        oracle = self.match_from_tries(
+            queries, max_persistent_fanout=max_persistent_fanout,
+            max_group_fanout=max_group_fanout)
+        return all(_canon(d) == _canon(o)
+                   for d, o in zip(device_rows, oracle)), oracle
+
     def _match_batch_device(self, queries: Sequence[Tuple[str,
                                                           Sequence[str]]],
                             *, max_persistent_fanout: int = UNCAPPED_FANOUT,
                             max_group_fanout: int = UNCAPPED_FANOUT,
-                            batch: Optional[int] = None
+                            batch: Optional[int] = None,
+                            stats: Optional[dict] = None
                             ) -> List[MatchedRoutes]:
-        """Match (tenant_id, topic) pairs on the device.
+        """Match (tenant_id, topic) pairs on the device: the sync leg.
 
         Exact at every instant: patched base walk ⊕ overlay ⊖ tombstones
-        equals a match against the authoritative tries. Dispatch
-        (tokenize + walk + expand on the device), fetch and host
-        expansion run back to back.
+        equals a match against the authoritative tries. Prepare, dispatch
+        (hash + walk + expand on the device), a readiness wait, the fetch
+        and the host expansion run back to back.
+
+        The device breaker gates this leg too: open serves the host oracle
+        with no dispatch; a device error feeds the breaker and then
+        PROPAGATES (the caller owns the sync fallback); a half-open
+        admission holds the canary batch to oracle row parity. The
+        readiness wait short-polls the result's event under the watchdog
+        deadline, and a hung card degrades THIS caller to the exact host
+        oracle (breaker fed, ``MATCH_DEGRADED`` counted).
         """
         if not queries:
             return []
-        fl = self._dispatch_prepared(self._prepare_probes(queries, batch))
-        overflow, pairs = self._fetch_walk(fl.res)
-        return self._expand_walk(fl, overflow, pairs,
-                                 max_persistent_fanout, max_group_fanout)
+        from ..resilience.device import DeviceTimeoutError
+        from ..utils.metrics import FABRIC, FabricMetric
+        br = self.device_breaker
+        verdict = br.admit() if br is not None else "ok"
+        if verdict == "rejected":
+            FABRIC.inc(FabricMetric.MATCH_DEGRADED, len(queries))
+            if stats is not None:
+                stats["degraded"] = "breaker"
+            return self.match_from_tries(
+                queries, max_persistent_fanout=max_persistent_fanout,
+                max_group_fanout=max_group_fanout)
+        try:
+            fl = self._dispatch_prepared(self._prepare_probes(queries, batch))
+            self._await_ready_sync(fl.res)
+            t0 = time.perf_counter()
+            overflow, pairs = self._fetch_walk(fl.res)
+            STAGES.record("device.fetch", time.perf_counter() - t0)
+            out = self._expand_walk(fl, overflow, pairs,
+                                    max_persistent_fanout, max_group_fanout)
+        except DeviceTimeoutError as e:
+            # the watchdog fired on the sync leg: the orphaned result is
+            # dropped (no ring, nothing dispatched after it reads it), the
+            # breaker is fed, and this caller serves the exact host oracle
+            FABRIC.inc(FabricMetric.DEVICE_TIMEOUT)
+            FABRIC.inc(FabricMetric.MATCH_DEGRADED, len(queries))
+            if br is not None:
+                br.record_failure(repr(e))
+            if stats is not None:
+                stats["degraded"] = "timeout"
+            return self.match_from_tries(
+                queries, max_persistent_fanout=max_persistent_fanout,
+                max_group_fanout=max_group_fanout)
+        except BaseException as e:
+            if br is not None:
+                if (isinstance(e, Exception)
+                        and not isinstance(e, _PROGRAM_FAULTS)):
+                    br.record_failure(repr(e))
+                elif verdict == "canary":
+                    br.release_probe()
+            raise
+        oracle_rows = self._settle_breaker(
+            verdict, queries, out, max_persistent_fanout, max_group_fanout)
+        if oracle_rows is not None:
+            FABRIC.inc(FabricMetric.MATCH_DEGRADED, len(queries))
+            if stats is not None:
+                stats["degraded"] = "canary_parity"
+            return oracle_rows
+        return out
 
     def match(self, tenant_id: str, topic: str, **kwargs) -> MatchedRoutes:
         return self.match_batch([(tenant_id, topic)], **kwargs)[0]
@@ -629,6 +1011,7 @@ class TorchMatcher:
         if batch is None:
             batch = _pow2_batch(len(queries))
         roots = [ct.root_of(t) for t, _ in queries]
+        t0 = time.perf_counter()
         topics = [levels for _, levels in queries]
         if all(isinstance(t, (str, bytes)) for t in topics):
             from ..ops.tokenize import device_tokenize
@@ -641,13 +1024,32 @@ class TorchMatcher:
             tok = tokenize(topics, roots, max_levels=ct.max_levels,
                            salt=ct.salt, batch=batch, cache=self._tok_cache)
             probes = Probes.from_tokenized(tok, device=self.device)
+        tokenize_s = time.perf_counter() - t0
+        STAGES.record("tokenize", tokenize_s)
         return _Prepared(queries=list(queries), ct=ct, tok=tok,
-                         probes=probes, roots=roots, batch=batch)
+                         probes=probes, roots=roots, batch=batch,
+                         tokenize_s=tokenize_s)
 
-    def _dispatch_prepared(self, prep: _Prepared) -> _InFlight:
+    def _dispatch_prepared(self, prep: _Prepared, *, donate: bool = False,
+                           watchdogged: bool = False) -> _InFlight:
         """Stage 1: enqueue the walk and the fan-out expansion for a
-        prepared probe batch; returns once both are enqueued."""
+        prepared probe batch; returns once both are enqueued.
+
+        ``donate`` is the reference's request to let XLA reuse the probe
+        buffers for the results. The port's kernels read the probes and
+        write fresh result tensors, so it changes nothing here; it stays
+        so the call sites match the reference's. ``watchdogged`` marks
+        the async leg: its device-fault rules (hang, slow, flaky_ready)
+        ride the _InFlight into the readiness wait, while the sync leg
+        honors only error rules; it also holds its own (not yet
+        dispatched) ring slot while it flushes."""
         from ..ops.match import expand_cap_lanes, expand_routes
+        from ..resilience.faults import get_injector
+        if watchdogged:
+            fault = get_injector().device_rule("dispatch")
+        else:
+            get_injector().check_raise("device", "tpu-device", "dispatch")
+            fault = None
         if self._base_ct is not prep.ct:
             # a compaction swap landed between prep and dispatch: roots
             # and salt are per-snapshot, so re-prep against the new base
@@ -655,18 +1057,22 @@ class TorchMatcher:
         # ship the host patches accumulated since the last dispatch (one
         # coalesced narrow write), so this batch walks the post-mutation
         # tables
-        self._flush_patches()
+        self._flush_patches(own_slots=1 if watchdogged else 0)
         ct = prep.ct
+        t0 = time.perf_counter()
         res = self._walk_primary(prep.probes, ct)
+        STAGES.record("device.dispatch", time.perf_counter() - t0)
+        t0 = time.perf_counter()
         peer_tab, slot_peer = self._peer_table(ct)
         res = expand_routes(res, slot_peer,
                             cap=prep.batch * expand_cap_lanes(),
                             n_peers=peer_tab.n_peers)
+        STAGES.record("device.expand", time.perf_counter() - t0)
         return _InFlight(queries=prep.queries, ct=ct,
                          dev=self._device_trie, tok=prep.tok,
                          roots=prep.roots, res=res, tomb=self._tomb,
                          delta=self._delta, batch=prep.batch,
-                         peer_tab=peer_tab)
+                         peer_tab=peer_tab, fault=fault)
 
     def _escalation_budget(self) -> Tuple[int, int]:
         """(K, A) of the overflow re-walk: a higher state budget and a
@@ -695,24 +1101,52 @@ class TorchMatcher:
         return tab, dev_tab
 
     @staticmethod
+    def _await_ready_sync(res) -> None:
+        """The sync leg's pre-fetch readiness wait: the async watchdog's
+        own poll (``pipeline.ready_polls``) slept on this thread, under
+        the same ``BIFROMQ_DEVICE_DEADLINE_S`` deadline — a hung card
+        degrades the SYNC caller to the oracle instead of wedging it
+        inside a synchronize. Recorded as ``device.ready``, the stage the
+        watchdog's derived deadline reads."""
+        from .pipeline import ready_polls
+        t0 = time.perf_counter()
+        for pause in ready_polls(res):
+            if pause:
+                time.sleep(pause)
+        STAGES.record("device.ready", time.perf_counter() - t0)
+
+    @staticmethod
     def _fetch_walk(res):
-        """Stage 2: the synchronization — writable host copies of the
-        compact pair buffers (the interval grids stay on the device;
-        escalation and truncated rows fetch them lazily)."""
-        overflow = _host(res.overflow)
+        """Stage 2: host arrays of the compact pair buffers — on the card
+        read from the pinned copies the result's fetch enqueued (waiting
+        on its event if it has not completed), on the CPU plain copies.
+        The interval grids come in the same copies and are read only for
+        buffer-truncated rows (``_fetch_escalation_grids``). The fetch-side device-fault hook fires
+        here (error rules only)."""
+        from ..resilience.faults import get_injector
+        get_injector().check_raise("device", "tpu-device", "fetch")
+        a = res.host_fetch().arrays()
+        # writable: the escalation clears the rows it rescues
+        overflow = a["overflow"].copy()
         pairs = _HostPairs(
-            slots=_host(res.slots), rows=_host(res.rows),
-            row_offsets=_host(res.row_offsets),
-            n_pairs=int(res.n_pairs), trunc=_host(res.trunc),
-            peer_slots=_host(res.peer_slots), peer_rows=_host(res.peer_rows),
-            peer_offsets=_host(res.peer_offsets), res=res)
+            slots=a["slots"], rows=a["rows"], row_offsets=a["row_offsets"],
+            n_pairs=int(a["n_pairs"]), trunc=a["trunc"],
+            peer_slots=a["peer_slots"], peer_rows=a["peer_rows"],
+            peer_offsets=a["peer_offsets"], res=res)
         return overflow, pairs
 
     @staticmethod
     def _fetch_escalation_grids(res):
         """Slow-path grid readback: only buffer-truncated rows ever need
-        the interval grids on the host."""
-        return _host(res.start), _host(res.count)
+        the interval grids on the host. A result with a fetch set reads
+        them from the pinned copies queued with its pair buffers, so the
+        read waits for this batch alone, not for the batches dispatched
+        after it."""
+        fetch = getattr(res, "host_fetch", None)
+        if fetch is None:
+            return _host(res.start), _host(res.count)
+        a = fetch().arrays()
+        return a["start"], a["count"]
 
     def _expand_walk(self, fl: _InFlight, overflow, pairs: _HostPairs,
                      max_persistent_fanout: int,

@@ -28,7 +28,7 @@ every product below 2^48.
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import List, Tuple
+from typing import Dict, List, Tuple
 
 import numpy as np
 import torch
@@ -37,6 +37,7 @@ from ..models.automaton import (
     NODE_HRCOUNT, NODE_HRSTART, NODE_PLUS, NODE_RCOUNT, NODE_RSTART,
     CompiledTrie, TokenizedTopics,
 )
+from ..utils.device import upload
 from ..utils.env import env_int
 
 # narrow count-walk table layout (see DeviceTrie.count_tab)
@@ -120,10 +121,8 @@ class Probes:
 
     @staticmethod
     def from_tokenized(t: TokenizedTopics, device) -> "Probes":
-        def put(a):
-            return torch.from_numpy(np.ascontiguousarray(a)).to(device)
-        return Probes(put(t.tok_h1), put(t.tok_h2), put(t.lengths),
-                      put(t.roots), put(t.sys_mask),
+        return Probes(*upload([t.tok_h1, t.tok_h2, t.lengths, t.roots,
+                               t.sys_mask], device),
                       int(t.lengths.max(initial=-1)))
 
 
@@ -474,6 +473,70 @@ def expand_cap_lanes() -> int:
     return max(1, env_int("BIFROMQ_EXPAND_CAP", 64))
 
 
+# the leaves the fetch reads every batch, and the interval grids that
+# buffer-truncated rows re-expand from: the grids are copied with the rest
+# because a later blocking read of them would wait for every batch
+# dispatched on the stream since, not for this batch alone
+FETCH_LEAVES = ("overflow", "slots", "rows", "row_offsets", "n_pairs",
+                "trunc", "peer_slots", "peer_rows", "peer_offsets",
+                "start", "count")
+
+
+class HostFetch:
+    """The fetch-on-ready half of one result, and its readiness leaf.
+
+    On the card, :meth:`copy_to_host_async` enqueues a ``non_blocking``
+    device→host copy of each leaf into a pinned host buffer on the
+    current (serving) stream, the stream the kernels ran on, and records
+    one CUDA event behind the copies: :meth:`is_ready` is that event's
+    query, and :meth:`arrays` reads the pinned buffers with no further
+    device sync. The buffers are this object's; whoever holds it (the
+    result, or the quarantine holding the result) keeps them and the
+    device tensors alive until the event completes. On the CPU every
+    leaf is always ready and the fetch is a plain copy.
+    """
+
+    __slots__ = ("_dev", "_host", "_event")
+
+    def __init__(self, tensors: Dict[str, torch.Tensor]) -> None:
+        self._dev = tensors
+        self._host = None
+        self._event = None
+
+    def copy_to_host_async(self) -> None:
+        if self._host is not None:
+            return
+        first = next(iter(self._dev.values()))
+        if not first.is_cuda:
+            self._host = {k: v.numpy().copy() for k, v in self._dev.items()}
+            return
+        host: Dict[str, torch.Tensor] = {}
+        by_id: Dict[int, torch.Tensor] = {}
+        for name, t in self._dev.items():
+            h = by_id.get(id(t))    # peer_* alias slots/rows at n_peers 0
+            if h is None:
+                h = by_id[id(t)] = torch.empty(t.shape, dtype=t.dtype,
+                                               pin_memory=True)
+                h.copy_(t, non_blocking=True)
+            host[name] = h
+        event = torch.cuda.Event()
+        event.record(torch.cuda.current_stream(first.device))
+        self._host, self._event = host, event
+
+    def is_ready(self) -> bool:
+        self.copy_to_host_async()
+        return self._event is None or self._event.query()
+
+    def arrays(self) -> Dict[str, np.ndarray]:
+        """Host arrays of every leaf, after the copies land (on the card,
+        read in place from the pinned buffers)."""
+        self.copy_to_host_async()
+        if self._event is None:
+            return self._host
+        self._event.synchronize()
+        return {k: v.numpy() for k, v in self._host.items()}
+
+
 @dataclass
 class ExpandedRoutes:
     """Device-expanded, peer-bucketed fan-out of one walk batch: the
@@ -501,6 +564,19 @@ class ExpandedRoutes:
     peer_slots: torch.Tensor    # [CAP] int32
     peer_rows: torch.Tensor     # [CAP] int32
     peer_offsets: torch.Tensor  # [n_peers+3] int32
+
+    def host_fetch(self) -> HostFetch:
+        """This result's one :class:`HostFetch` over ``FETCH_LEAVES``."""
+        fetch = self.__dict__.get("_host_fetch")
+        if fetch is None:
+            fetch = self.__dict__["_host_fetch"] = HostFetch(
+                {name: getattr(self, name) for name in FETCH_LEAVES})
+        return fetch
+
+    def ready_leaves(self):
+        """The leaves the dispatch ring kicks and polls: one readiness
+        handle for the pair buffers the fetch reads every batch."""
+        return (self.host_fetch(),)
 
 
 def _expand_prefix(ivl_s: torch.Tensor, ivl_c: torch.Tensor, cap: int):

@@ -27,7 +27,7 @@ import torch
 
 from ..models import bytetok
 from ..models.automaton import TokenizedTopics
-from ..utils.device import CudaKernel, check_cuda, ptr, stream_of
+from ..utils.device import CudaKernel, check_cuda, ptr, stream_of, upload
 from ..utils.env import env_int
 
 _EMPTY = -1
@@ -153,19 +153,21 @@ def blake2b_levels(rows, starts, lens, nlv, h0):
     return h1, h2
 
 
-def h0_tensor(salt: int, device) -> torch.Tensor:
+def _h0(salt: int) -> np.ndarray:
     """The salt-folded BLAKE2b initial state as [8] int64 bit patterns."""
-    h0 = bytetok.blake2b8_h0(salt).view(np.int64)
-    return torch.from_numpy(h0.copy()).to(device)
+    return bytetok.blake2b8_h0(salt).view(np.int64)
+
+
+def h0_tensor(salt: int, device) -> torch.Tensor:
+    """:func:`_h0` on ``device``."""
+    return upload([_h0(salt)], device)[0]
 
 
 def hash_topics_device(rows, starts, lens, nlv, salt: int, *, device):
-    """Upload the packed byte batch and hash every level on the device.
-    Returns (h1, h2) tensors [B, W] int32 on ``device``."""
-    def put(a):
-        return torch.from_numpy(np.ascontiguousarray(a)).to(device)
-    return blake2b_levels(put(rows), put(starts), put(lens), put(nlv),
-                          h0_tensor(salt, device))
+    """Upload the packed byte batch (one copy) and hash every level on
+    the device. Returns (h1, h2) tensors [B, W] int32 on ``device``."""
+    return blake2b_levels(*upload([rows, starts, lens, nlv, _h0(salt)],
+                                  device))
 
 
 class DeviceTokenized:
@@ -253,11 +255,10 @@ def device_tokenize(tb, roots: Sequence[int], *, max_levels: int,
         tb, roots, max_levels=max_levels, batch=b)
     h1, h2 = hash_topics_device(rows, starts, lens_g, lengths.reshape(b, 1),
                                 salt, device=device)
-
-    def put(a):
-        return torch.from_numpy(a).to(device)
-    probes = Probes(tok_h1=h1, tok_h2=h2, lengths=put(lengths),
-                    roots=put(rootv), sys_mask=put(sys_mask),
+    dev_lengths, dev_roots, dev_sys = upload([lengths, rootv, sys_mask],
+                                             device)
+    probes = Probes(tok_h1=h1, tok_h2=h2, lengths=dev_lengths,
+                    roots=dev_roots, sys_mask=dev_sys,
                     max_len=int(lengths.max(initial=-1)))
     mirror = DeviceTokenized(lengths=lengths, roots=rootv,
                              sys_mask=sys_mask, tb=tb, salt=salt,

@@ -296,6 +296,10 @@ class TorchMeshMatcher(TorchMatcher):
 
     # the per-shard patch plane is not ported (ROADMAP A.11)
     supports_patching = False
+    # the mesh keeps the sync leg: match_batch_async takes it, as the
+    # reference's own sync route does; the per-shard readiness waits,
+    # shard breakers and split dispatch of its async leg are ROADMAP A.11
+    supports_async = False
 
     def __init__(self, tries: Dict[str, SubscriptionTrie] = None,
                  mesh: MeshShape = None, *, max_levels: int = 16,
@@ -310,6 +314,8 @@ class TorchMeshMatcher(TorchMatcher):
                          compact_threshold=compact_threshold,
                          max_intervals=max_intervals,
                          match_cache=match_cache)
+        # no device breaker until the shard breakers come (ROADMAP A.11)
+        self.device_breaker = None
         self.mesh = mesh
         self.n_replicas = mesh.shape[REPLICA_AXIS]
         self.n_shards = mesh.shape[SHARD_AXIS]

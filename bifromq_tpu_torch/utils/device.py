@@ -22,6 +22,7 @@ import sysconfig
 from pathlib import Path
 from typing import Dict, Iterable, List, Optional, Sequence
 
+import numpy as np
 import torch
 
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
@@ -39,6 +40,26 @@ def resolve_device(device=None) -> torch.device:
         raise RuntimeError("no CUDA device is available; pass device='cpu' "
                            "to run the plain PyTorch versions")
     return dev
+
+
+# cudaError_t values that report a fault of the context (a kernel that
+# trapped or read out of bounds, an ECC error), which later calls see as
+# well: a launch that returns one of these met a device fault; any other
+# code is the launch itself at fault (its arguments, its configuration,
+# a missing kernel image)
+DEVICE_FAULT_CODES = frozenset((214, 700, 702, 710, 714, 715, 716, 717,
+                                718, 719))
+
+
+class KernelLaunchError(RuntimeError):
+    """A kernel's C entry refused or failed to launch it. A fault of the
+    program, not of the card: the serving path raises it to its caller
+    and never serves around it."""
+
+
+class DeviceFaultError(RuntimeError):
+    """A launch met a fault of the CUDA context that an earlier
+    asynchronous operation left behind."""
 
 
 def _nvcc() -> str:
@@ -59,10 +80,11 @@ class CudaKernel:
 
     The entry takes device pointers, ints and the CUDA stream, launches on
     that stream and returns ``cudaGetLastError()``; :meth:`launch` raises
-    when it is not 0. Python reaches it through the source's extension
-    module, named after the source's stem. ``launches`` counts successful
-    launches and nothing else, so a run can show that its main path went
-    through the kernel.
+    when it is not 0: :class:`DeviceFaultError` for a code of
+    ``DEVICE_FAULT_CODES``, else :class:`KernelLaunchError`. Python
+    reaches it through the source's extension module, named after the
+    source's stem. ``launches`` counts successful launches and nothing
+    else, so a run can show that its main path went through the kernel.
     The host path of a launch is kept short, since at the serving path's
     widths it is all a launch costs: the bound function is resolved once,
     the stream handle is read raw, and pointers and ints pass straight to
@@ -126,7 +148,9 @@ class CudaKernel:
         Python ints, in the C entry's order, the stream last."""
         rc = (self._fn or self.load())(*args, stream)
         if rc:
-            raise RuntimeError(f"{self.symbol}: CUDA error {rc} at launch")
+            err = (DeviceFaultError if rc in DEVICE_FAULT_CODES
+                   else KernelLaunchError)
+            raise err(f"{self.symbol}: CUDA error {rc} at launch")
         self.launches += 1
 
 
@@ -148,6 +172,33 @@ def build_all(kernels: Iterable[CudaKernel] = ()) -> None:
 def reset_launches() -> None:
     for k in KERNELS.values():
         k.launches = 0
+
+
+def upload(arrays: Sequence[np.ndarray], device) -> List[torch.Tensor]:
+    """One batch's host arrays on ``device``, in one copy that does not
+    block the host. On the card the arrays are staged back to back, each
+    at a 16-byte offset, in one pinned buffer, copied ``non_blocking``,
+    and returned as views of the one device buffer: a copy from pageable
+    memory would wait for every kernel already queued on the stream, so
+    the next batch's prepare could not run while the card still walks
+    the one before it. PyTorch's pinned allocator keeps the staging
+    buffer until the copy is done. On the CPU, copies."""
+    arrays = [np.ascontiguousarray(a) for a in arrays]
+    dev = torch.device(device)
+    if dev.type != "cuda":
+        return [torch.from_numpy(a.copy()) for a in arrays]
+    offs, n = [], 0
+    for a in arrays:
+        offs.append(n)
+        n += -(-a.nbytes // 16) * 16
+    host = torch.empty(max(n, 16), dtype=torch.uint8, pin_memory=True)
+    staged = host.numpy()
+    for a, o in zip(arrays, offs):
+        staged[o:o + a.nbytes] = a.reshape(-1).view(np.uint8)
+    buf = host.to(dev, non_blocking=True)
+    return [buf[o:o + a.nbytes]
+            .view(torch.from_numpy(np.empty(0, a.dtype)).dtype)
+            .view(a.shape) for a, o in zip(arrays, offs)]
 
 
 def ptr(t: torch.Tensor) -> int:

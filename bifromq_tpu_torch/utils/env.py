@@ -1,5 +1,5 @@
 """Environment knob parsers (copy of ``env_int``/``env_str``/``env_bool``/
-``env_float`` from ``bifromq_tpu/utils/env.py``).
+``env_float``/``env_opt_str`` from ``bifromq_tpu/utils/env.py``).
 
 Every ``BIFROMQ_*`` knob the port reads resolves through these helpers,
 lazily at first use, never at module import.
@@ -8,6 +8,7 @@ lazily at first use, never at module import.
 from __future__ import annotations
 
 import os
+from typing import Optional
 
 
 def env_float(name: str, default: float) -> float:
@@ -31,6 +32,13 @@ def env_int(name: str, default: int) -> int:
 def env_str(name: str, default: str = "") -> str:
     """Stripped string env knob; unset/blank yields the default."""
     return os.environ.get(name, "").strip() or default
+
+
+def env_opt_str(name: str) -> Optional[str]:
+    """Stripped string knob, or None when unset/blank (for callers that
+    must distinguish 'absent' from any concrete value)."""
+    raw = os.environ.get(name, "").strip()
+    return raw or None
 
 
 _FALSY = ("0", "off", "false", "no")

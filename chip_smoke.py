@@ -26,9 +26,16 @@ with an NVIDIA H100 and the CUDA toolkit. The script
      and four stacked under a [2, 4] block grid in one batched call;
      then ("K2-budgets") at every (K, A) of K in {2, 4, 6, 8, 16, 24,
      32, 64, 128, 256} x A in {1, 2, ..., 256}, which covers every
-     primary and escalation budget the reference's tests reach, and
+     primary and escalation budget the reference's tests reach, and at
+     K in {257, 300, 512, 1024} x A in {32, 256} on the config-2 rows
+     and the full-bucket tables with 13-level rows, which reach the
+     sorted compaction at each of these K (K = 512 the largest
+     registers-and-shared-memory instance, 1024 the global-scratch
+     path), and
      ``TorchMatcher(k_states=16)`` (escalation (64, 128)) serving 1024
-     topics equal to the host oracle;
+     topics equal to the host oracle; then ("K2-large-time") times K =
+     32, 512 and 1024 on 4096 config-2 rows and on the full-bucket
+     tables;
    - the expansion (K3) also on seeded adversarial grids (long runs of
      empty lanes, a lane longer than a tile, totals below, at and far
      above the buffer, a buffer that is no multiple of the tile,
@@ -74,7 +81,28 @@ with an NVIDIA H100 and the CUDA toolkit. The script
    [8, 1024, 32] grids;
 8. serves one checked mesh batch over a 100K-subscription config-5
    population whose deliverer keys name 8 servers, so the blocks bucket
-   into 8 peers and the ring merges ``[2, 4, 10]`` count vectors.
+   into 8 peers and the ring merges ``[2, 4, 10]`` count vectors;
+9. ("pipeline") runs bench.py's config 7 on the port: 200K
+   subscriptions (``config_wildcard(200_000, seed=0)``, cache off), 8
+   blocking ``match_batch`` calls of 4096 topics against the same stream
+   as 2048 batches of 16 through ``match_batch_async`` and the dispatch
+   ring, with the launch counts reset just before the pipelined leg and
+   read just after (the hash, the walk and the expansion must each have
+   launched); prints both legs' topics/s and batch p50/p99, the ring's
+   peak in flight and depth, the p99 speedup and the stage percentiles;
+   checks sampled rows against the sync leg (in order) and the oracle,
+   an overlap of two batches, and no degraded batch; then the same leg
+   with 16 subscribes landing between dispatches, each churn row equal
+   to the oracle as of its batch's dispatch and at least one patch flush
+   that wrote new tables because a batch was in flight;
+10. ("device-chaos") on a 400-subscription matcher: a dispatch error,
+   a hang under a 0.25 s watchdog deadline with the batch held on the
+   card by a sleep kernel (the quarantine keeps the result until its
+   CUDA event completes, then a sweep empties it) and a forced-open
+   breaker (served with no launch, re-closed by the half-open canary),
+   each served exactly from the host oracle and followed by a batch the
+   card serves exactly. No batch outside this phase may be degraded, and
+   every device breaker must read closed at the end.
 
 The config-2 and mesh matchers run with the match cache off, as
 bench.py's config 2 does, so every batch reaches the card. It prints the
@@ -661,15 +689,17 @@ def k2_dense(torch, K, M, workloads, dev) -> int:
     return err
 
 
-def walk_bound_row(torch, M, blocks, probe_len: int, a: int):
+def walk_bound_row(torch, M, blocks, probe_len: int, a: int,
+                   k_states: int = 32):
     """Bytes and operations of the walk over ``blocks`` — (trie, probes,
-    shard) triples, 2-D probes each — as this run's data needs them: every
-    route-table row and edge bucket the walk visits, read once per shard,
-    the probe grids read and the results written once."""
+    shard) triples, 2-D probes each — at state budget ``k_states``, as
+    this run's data needs them: every route-table row and edge bucket the
+    walk visits, read once per shard, the probe grids read and the
+    results written once."""
     rows, bkts, n_row_v, n_bkt_v, n = [], [], 0, 0, 0
     for trie, probes, sh in blocks:
         visits = {"rows": [], "buckets": []}
-        M._route_walk(trie, probes, probe_len, 32, a, visits=visits)
+        M._route_walk(trie, probes, probe_len, k_states, a, visits=visits)
         n_row_v += sum(int(v.numel()) for v in visits["rows"])
         n_bkt_v += sum(int(v.numel()) for v in visits["buckets"])
         rows.append(torch.cat(visits["rows"]).long() * 64 + sh)
@@ -923,6 +953,7 @@ K1_WIDE_MB = (1536, 4096, 16384, 65535)   # past the old 1520-byte limit
 # k_states in {2, 4, 6, 8, 16, 32}, max_intervals in {1, ..., 32} and the
 # escalation (min(4K, 128), max(min(4A, 256), A)); plus the kernel's top K
 K2_BUDGET_K = (2, 4, 6, 8, 16, 24, 32, 64, 128, 256)
+K2_LARGE_K = (257, 300, 512, 1024)
 K2_BUDGET_A = (1, 2, 4, 8, 16, 32, 64, 128, 256)
 CHURN_OPS = 256          # bench.py config 8 (BENCH_CHURN_OPS default)
 CHURN_BATCH = 64
@@ -990,14 +1021,30 @@ def k1_wide_phase(torch, T, TopicBytes, dev, smi):
     return err
 
 
+def dense_walk_inputs(torch, M, workloads, dev, **kw):
+    """``workloads.dense_walk_tables(0, **kw)`` on the card: the walk's
+    ``(DeviceTrie, Probes)``."""
+    import numpy as np
+    d = workloads.dense_walk_tables(0, **kw)
+
+    def put(x):
+        return torch.from_numpy(np.ascontiguousarray(x)).to(dev)
+    rt = put(d["route_tab"])
+    return (M.DeviceTrie(rt, put(d["edge_tab"]), None, None, rt),
+            M.Probes(put(d["tok_h1"]), put(d["tok_h2"]), put(d["lengths"]),
+                     put(d["roots"]), put(d["sys_mask"]),
+                     int(d["lengths"].max())))
+
+
 def k2_budgets_phase(torch, K, M, D, workloads, trie, probes, dev, smi):
     """K2 against ``walk_routes(esc_k=0)`` at every (K, A) of
     ``K2_BUDGET_K`` x ``K2_BUDGET_A`` on the first 4096 config-2 probe
-    rows, and at K = 6 and 24 on the seeded full-bucket tables, exact;
-    then ``TorchMatcher(k_states=16)`` — escalation budget (64, 128) —
-    serves a batch of 1024 topic strings equal to the host oracle row for
-    row. Returns the max error."""
-    import numpy as np
+    rows, at K = 6 and 24 on the seeded full-bucket tables, and at every
+    K of ``K2_LARGE_K`` x A in {32, 256} on the config-2 rows and on
+    full-bucket tables with 13-level rows, exact; then
+    ``TorchMatcher(k_states=16)`` — escalation budget (64, 128) — serves
+    a batch of 1024 topic strings equal to the host oracle row for row.
+    Returns the max error."""
     from bifromq_tpu_torch.models.matcher import TorchMatcher
     sub = M.Probes(*(x[:B_SERVE].contiguous() for x in
                      (probes.tok_h1, probes.tok_h2, probes.lengths,
@@ -1013,18 +1060,23 @@ def k2_budgets_phase(torch, K, M, D, workloads, trie, probes, dev, smi):
                             [getattr(want, f) for f in WALK_FIELDS])
             err = max(err, e)
             cases.append([k_states, a, e, int(got.overflow.sum())])
-    d = workloads.dense_walk_tables(0)
-
-    def put(x):
-        return torch.from_numpy(np.ascontiguousarray(x)).to(dev)
-    rt = put(d["route_tab"])
-    dense = M.DeviceTrie(rt, put(d["edge_tab"]), None, None, rt)
-    dp = M.Probes(put(d["tok_h1"]), put(d["tok_h2"]), put(d["lengths"]),
-                  put(d["roots"]), put(d["sys_mask"]),
-                  int(d["lengths"].max()))
+    dense, dp = dense_walk_inputs(torch, M, workloads, dev)
     for k_states in (6, 24):
         err = max(err, k2_hold(torch, K, M, dense, dp, k_states, 32, 16,
                                "dense")[1])
+    # past the registers-and-shared-memory instances: KC = 512 in shared
+    # memory, and K > 512 on the global-scratch path; rows of up to 13
+    # levels widen past 2^10 candidates, so every one of these K reaches
+    # the sorted compaction
+    deep, deep_p = dense_walk_inputs(torch, M, workloads, dev, depth=13)
+    for k_states in K2_LARGE_K:
+        for a in (32, 256):
+            e = k2_hold(torch, K, M, trie, sub, k_states, a, 16,
+                        "config 2")[1]
+            e = max(e, k2_hold(torch, K, M, deep, deep_p, k_states, a, 16,
+                               "dense depth 13")[1])
+            err = max(err, e)
+            cases.append([k_states, a, e, None])
     print(json.dumps({"phase": "K2-budgets", "card": smi,
                       "rows": B_SERVE, "cases [K, A, err, overflow]": cases,
                       "max_abs_err": err}), flush=True)
@@ -1054,6 +1106,40 @@ def k2_budgets_phase(torch, K, M, D, workloads, trie, probes, dev, smi):
         raise AssertionError(f"TorchMatcher(k_states=16) rows {bad[:8]} "
                              f"differ from the oracle, launches {launched}")
     return err
+
+
+def k2_large_time(torch, K, M, workloads, trie, probes, dev, smi):
+    """K2 timed at K = 32, 512 (the largest shared-memory instance) and
+    1024 (the global-scratch path), A = 32: on the first 4096 config-2
+    probe rows (few live states a row), and on the seeded full-bucket
+    tables with rows of up to 13 levels (256 rows; past 2^10 candidates
+    the K^2 rank selection runs at every level). Whole call, device time
+    and the plain walk, with the byte bound of each run. Returns the
+    rows."""
+    sub = M.Probes(*(x[:B_SERVE].contiguous() for x in
+                     (probes.tok_h1, probes.tok_h2, probes.lengths,
+                      probes.roots, probes.sys_mask)), probes.max_len)
+    dense, dp = dense_walk_inputs(torch, M, workloads, dev, depth=13)
+    out = []
+    for label, t, p in (("config 2", trie, sub),
+                        ("dense depth 13", dense, dp)):
+        for k_states in (32, 512, 1024):
+            kw = dict(probe_len=16, k_states=k_states, max_intervals=32)
+            r = walk_bound_row(torch, M, [(t, p, 0)], 16, 32, k_states)
+
+            def kern():
+                return K.fused_walk_routes(t, p, **kw)
+            row = {"case": label, "rows": int(p.tok_h1.shape[0]),
+                   "K": k_states, "ms": time_ms(torch, kern, 10),
+                   "device_ms": time_device_ms(torch, kern, 10),
+                   "plain_ms": time_ms(torch, lambda: M.walk_routes(
+                       t, p, esc_k=0, **kw), 2, 1),
+                   "bound_ms": bound_ms(r), "bound_by": bound_by(r),
+                   "overflow_rows": int(kern().overflow.sum())}
+            out.append(row)
+    print(json.dumps({"phase": "K2-large-time", "card": smi, "A": 32,
+                      "cases": out}), flush=True)
+    return out
 
 
 def _pcts(xs):
@@ -1213,6 +1299,452 @@ def cache_phase(torch, D, mp, queries, miss_ms, smi):
     return out
 
 
+PIPE_SUBS = 200_000       # bench.py config 7 (BENCH_PIPE_SUBS default)
+PIPE_BIG = 4096
+PIPE_SMALL = 16
+PIPE_SYNC_ITERS = 8
+PIPE_CHURN = 16
+PIPE_STALL_CYCLES = 8_000_000  # ~4 ms at 1.98 GHz: the card behind the host
+
+
+def norm(m):
+    """A row route for route, in order (``canon`` compares as sets)."""
+    return (tuple((r.matcher.mqtt_topic_filter, r.receiver_url,
+                   r.incarnation) for r in m.normal),
+            tuple((f, tuple(r.receiver_url for r in ms))
+                  for f, ms in m.groups.items()),
+            m.persistent_fanout)
+
+
+def _launches(D):
+    return {k: v.launches for k, v in D.KERNELS.items()}
+
+
+def pipeline_holds(torch, m, shapes, dev):
+    """K1, K2 (at the primary and at the escalation budget) and K3 on the
+    serving leg's own prepared batches, each held exactly against its
+    plain version: ``shapes`` maps a label to (queries, batch), the
+    batch as ``match_batch_async`` pads it (``batch=None``: the idle
+    ring's latency floor and the busy ring's throughput floor) or as the
+    sync leg runs it. The escalation hold walks the sub-batch of the
+    primary's overflow rows as the matcher builds it, or the batch's own
+    probes when no row overflowed. Returns the max error per kernel."""
+    import numpy as np
+    from bifromq_tpu_torch.models import kernels as K
+    from bifromq_tpu_torch.models.bytetok import TopicBytes
+    from bifromq_tpu_torch.models.matcher import _pow2_batch
+    from bifromq_tpu_torch.ops import match as M
+    from bifromq_tpu_torch.ops import tokenize as T
+
+    ct = m._base_ct
+    trie = m._device_trie
+    esc_k, esc_a = m._escalation_budget()
+    err = {"blake2b_levels": 0, "fused_walk": 0, "expand_pairs": 0}
+    out = {}
+    for label, (queries, batch) in shapes.items():
+        prep = m._prepare_probes(queries, batch)
+        lengths, _, _, rows_b, starts, lens = T.pack_topic_bytes(
+            TopicBytes.from_topics([t for _, t in queries]), prep.roots,
+            max_levels=ct.max_levels, batch=batch)
+        args = [torch.from_numpy(a).to(dev) for a in
+                (rows_b, starts, lens, lengths.reshape(batch, 1))]
+        h0 = T.h0_tensor(ct.salt, dev)
+        want = T._hash_lanes(*args, h0)
+        e1 = max(max_abs_err(torch, T.blake2b_levels(*args, h0), want),
+                 max_abs_err(torch, [prep.probes.tok_h1, prep.probes.tok_h2],
+                             want))
+        ivl, e2 = k2_hold(torch, K, M, trie, prep.probes, m.k_states,
+                          m.max_intervals, ct.probe_len, f"pipeline {label}")
+        ovf = np.nonzero(ivl.overflow.cpu().numpy()[:len(queries)]
+                         & (prep.tok.lengths[:len(queries)] >= 0))[0]
+        sub = (M.Probes.from_tokenized(
+            prep.tok.sub_batch(ovf, _pow2_batch(len(ovf))), device=dev)
+            if len(ovf) else prep.probes)
+        e2 = max(e2, k2_hold(torch, K, M, trie, sub, esc_k, esc_a,
+                             ct.probe_len,
+                             f"pipeline {label} escalation")[1])
+        cap = batch * M.expand_cap_lanes()
+        serve_c = torch.where(ivl.overflow[:, None], 0, ivl.count)
+        got = K.kernel_expand(ivl.start, serve_c, cap=cap)
+        e3 = max_abs_err(torch, list(got),
+                         list(M._expand_pairs(ivl.start, serve_c, cap)))
+        torch.cuda.synchronize()
+        for k, e in zip(err, (e1, e2, e3)):
+            err[k] = max(err[k], e)
+        out[label] = {"batch": batch, "topics": len(queries),
+                      "overflow_rows": int(len(ovf)),
+                      "escalation_rows": int(sub.tok_h1.shape[0]),
+                      "expand_cap": cap, "pairs": int(got[3]),
+                      "max_abs_err": {"K1": e1, "K2": e2, "K3": e3}}
+    print(json.dumps({"phase": "pipeline-holds", "K": m.k_states,
+                      "A": m.max_intervals, "escalation": [esc_k, esc_a],
+                      "cases": out}), flush=True)
+    if any(err.values()):
+        raise AssertionError(f"pipeline: a kernel differs from its plain "
+                             f"version at the serving leg's shapes: {out}")
+    return err
+
+
+def pipeline_phase(torch, D, workloads, smi, dev):
+    """bench.py config 7 (``bench_config7``) on the port: the sync leg
+    (8 blocking ``match_batch`` calls of 4096 topics) against the
+    pipelined leg (the same stream as 2048 batches of 16 topics through
+    ``match_batch_async``, ``pipeline_depth()`` asyncio workers), on
+    ``config_wildcard(200_000)`` with the cache off. K1, K2 and K3 are
+    first held against their plain versions on the leg's own prepared
+    batches (``pipeline_holds``). The launch counts are reset just before
+    the pipelined leg and read just after; K1, K2 and K3 must each have
+    launched. Checks: 256 sampled pipelined rows equal the sync leg's
+    route for route in order, and the host oracle's as sets (the oracle
+    walks its trie in another order); no batch was degraded. The leg's
+    ring occupancy (``peak_in_flight``) and its dispatches made while an
+    earlier batch was still on the card (``overlapped``) are reported:
+    at 16 topics the card finishes a batch within its own enqueue, so
+    there may be nothing to overlap. Then the same leg again with the
+    card made slower than the host — a sleep kernel of
+    ``PIPE_STALL_CYCLES`` ahead of each walk — and 16 subscribes
+    (``bench/churn/{i}/+``) landing between dispatches, each batch's last
+    topic on a churn filter: batch N+1 must dispatch while N is still on
+    the card (peak in flight 2, at least one overlapped dispatch), every
+    churn row equal the oracle as of its batch's dispatch, 256 other rows
+    the oracle, and at least one patch flush write new tables because a
+    batch was in flight. Returns the phase's summary."""
+    import asyncio
+
+    import numpy as np
+    from bifromq_tpu_torch.models.matcher import TorchMatcher, _pow2_batch
+    from bifromq_tpu_torch.models.oracle import Route
+    from bifromq_tpu_torch.models.pipeline import pipeline_depth
+    from bifromq_tpu_torch.types import RouteMatcher
+    from bifromq_tpu_torch.utils.metrics import STAGES
+
+    t0 = time.perf_counter()
+    m = TorchMatcher.from_tries(workloads.config_wildcard(PIPE_SUBS, seed=0),
+                                device=dev, match_cache=False,
+                                auto_compact=False)
+    build_s = time.perf_counter() - t0
+    topics = ["/".join(t) for t in workloads.probe_topics(4 * PIPE_BIG,
+                                                          seed=1)]
+    batches = [[("tenant0", t) for t in topics[i * PIPE_BIG:
+                                               (i + 1) * PIPE_BIG]]
+               for i in range(4)]
+    # ---- sync leg
+    m.match_batch(batches[0])
+    sync_rows = [None] * len(topics)
+    lat = []
+    t0 = time.perf_counter()
+    for it in range(PIPE_SYNC_ITERS):
+        s0 = time.perf_counter()
+        res = m.match_batch(batches[it % 4])
+        lat.append(time.perf_counter() - s0)
+        if it < 4:
+            sync_rows[it * PIPE_BIG:(it + 1) * PIPE_BIG] = res
+    sync_s = time.perf_counter() - t0
+    sync = {"batch": PIPE_BIG, "batches": PIPE_SYNC_ITERS,
+            "topics_per_s": PIPE_BIG * PIPE_SYNC_ITERS / sync_s,
+            "batch_p50_ms": float(np.percentile(lat, 50)) * 1e3,
+            "batch_p99_ms": float(np.percentile(lat, 99)) * 1e3}
+    # ---- pipelined leg
+    n_small = max(1, min(PIPE_BIG * PIPE_SYNC_ITERS // PIPE_SMALL, 2048))
+    ring = m._pipeline_ring()
+    holds = pipeline_holds(torch, m, {
+        "idle": (batches[0][:PIPE_SMALL],
+                 _pow2_batch(PIPE_SMALL, floor=ring.min_floor)),
+        "busy": (batches[0][PIPE_SMALL:2 * PIPE_SMALL],
+                 _pow2_batch(PIPE_SMALL, floor=ring.base_floor)),
+        "sync": (batches[0], _pow2_batch(PIPE_BIG))}, dev)
+
+    def small_batches(churn: bool):
+        out = []
+        for j in range(n_small):
+            b = [("tenant0", topics[(j * PIPE_SMALL + k) % len(topics)])
+                 for k in range(PIPE_SMALL)]
+            if churn:
+                b[-1] = ("tenant0", f"bench/churn/{j % PIPE_CHURN}/x")
+            out.append(b)
+        return out
+
+    def run(sm, churner=None):
+        lats, results, degraded = [], [None] * len(sm), []
+        nxt = {"i": 0}
+
+        async def worker():
+            while nxt["i"] < len(sm):
+                j = nxt["i"]
+                nxt["i"] += 1
+                stats = {}
+                s0 = time.perf_counter()
+                results[j] = await m.match_batch_async(sm[j], batch=None,
+                                                       stats=stats)
+                lats.append(time.perf_counter() - s0)
+                if "degraded" in stats:
+                    degraded.append((j, stats["degraded"]))
+
+        async def main_():
+            workers = [asyncio.ensure_future(worker())
+                       for _ in range(pipeline_depth())]
+            side = (asyncio.ensure_future(churner(workers))
+                    if churner is not None else None)
+            await asyncio.gather(*workers)
+            if side is not None:
+                await side
+
+        t0 = time.perf_counter()
+        asyncio.run(main_())
+        return results, lats, degraded, time.perf_counter() - t0
+
+    from bifromq_tpu_torch.utils.metrics import FABRIC, FabricMetric
+    deg0 = FABRIC.get(FabricMetric.MATCH_DEGRADED)
+    sm = small_batches(False)
+    asyncio.run(m.match_batch_async(sm[0]))       # the ring and its shapes
+    STAGES.reset()
+    ring.peak_inflight = 0
+    ov0 = ring.overlapped_total
+    torch.cuda.synchronize()
+    D.reset_launches()
+    results, lats, degraded, pipe_s = run(sm)
+    torch.cuda.synchronize()
+    launched = _launches(D)
+    pipe = {"batch": PIPE_SMALL, "batches": len(sm),
+            "topics_per_s": PIPE_SMALL * len(sm) / pipe_s,
+            "batch_p50_ms": float(np.percentile(lats, 50)) * 1e3,
+            "batch_p99_ms": float(np.percentile(lats, 99)) * 1e3,
+            "peak_in_flight": ring.peak_inflight,
+            "overlapped": ring.overlapped_total - ov0,
+            "ring_depth": ring.depth, "launches": launched,
+            "degraded_batches": len(degraded)}
+    stages = {k: v for k, v in STAGES.snapshot().items()
+              if k.startswith("device") or k == "tokenize"}
+    # ---- checks
+    flat = [(q, r) for b, rs in zip(sm, results) for q, r in zip(b, rs)]
+    step = max(1, len(flat) // ORACLE_SAMPLE)
+    sample = list(range(0, len(flat), step))[:ORACLE_SAMPLE]
+    oracle = m.match_from_tries([flat[i][0] for i in sample])
+    topic_pos = {t: i for i, t in enumerate(topics)}
+    bad_sync = [i for i in sample if norm(flat[i][1])
+                != norm(sync_rows[topic_pos[flat[i][0][1]]])]
+    bad_oracle = [i for i, o in zip(sample, oracle)
+                  if canon(flat[i][1]) != canon(o)]
+    n_checked = len(sample)
+    missing = [k for k in ("blake2b_levels", "fused_walk", "expand_pairs")
+               if not launched[k]]
+    if (bad_sync or bad_oracle or degraded or missing
+            or FABRIC.get(FabricMetric.MATCH_DEGRADED) != deg0):
+        raise AssertionError(
+            f"pipeline: rows {bad_sync[:8]} differ from the sync leg, "
+            f"{bad_oracle[:8]} from the oracle; degraded {degraded[:8]}; "
+            f"kernels not launched {missing}")
+    # ---- the same leg with subscribes landing between dispatches
+    churn_sm = small_batches(True)
+    churn_topics = [f"bench/churn/{i}/x" for i in range(PIPE_CHURN)]
+    base_churn = m.match_from_tries([("tenant0", t) for t in churn_topics])
+    applied = {"n": 0}
+    at_dispatch = {}
+    real_dispatch = m._dispatch_prepared
+
+    def recording_dispatch(prep, **kw):
+        # which subscribes this batch's tables hold: the ones applied
+        # before its dispatch
+        at_dispatch[id(prep.queries[-1])] = applied["n"]
+        torch.cuda._sleep(PIPE_STALL_CYCLES)
+        return real_dispatch(prep, **kw)
+
+    async def churner(workers):
+        # the i-th subscribe lands once (i + 1/2) / 16 of the batches have
+        # dispatched, while a batch is in flight
+        every = max(2, n_small // PIPE_CHURN)
+        while applied["n"] < PIPE_CHURN and not all(w.done()
+                                                    for w in workers):
+            await asyncio.sleep(0)
+            due = d0 + applied["n"] * every + every // 2
+            if ring.dispatched_total >= due and ring.in_flight:
+                i = applied["n"]
+                m.add_route("tenant0", Route(
+                    RouteMatcher.from_topic_filter(f"bench/churn/{i}/+"),
+                    0, f"churn{i}", "d0", 0))
+                applied["n"] += 1
+
+    m._dispatch_prepared = recording_dispatch
+    d0, und0 = ring.dispatched_total, m.patch_flushes_undonated
+    ring.peak_inflight = 0
+    ov0 = ring.overlapped_total
+    try:
+        results, lats_c, degraded, churn_s = run(churn_sm, churner)
+    finally:
+        del m._dispatch_prepared
+    bad_churn = []
+    for j, (b, rs) in enumerate(zip(churn_sm, results)):
+        i = j % PIPE_CHURN
+        n = at_dispatch[id(b[-1])]
+        want = canon(base_churn[i])
+        if i < n:
+            want = (sorted(want[0] + [(f"bench/churn/{i}/+",
+                                       (0, f"churn{i}", "d0"))]), want[1])
+        if canon(rs[-1]) != want:
+            bad_churn.append(j)
+    flat = [(q, r) for b, rs in zip(churn_sm, results)
+            for q, r in list(zip(b, rs))[:-1]]
+    sample = list(range(0, len(flat), max(1, len(flat) // ORACLE_SAMPLE)))
+    oracle = m.match_from_tries([flat[i][0] for i in sample])
+    bad_rows = [i for i, o in zip(sample, oracle)
+                if canon(flat[i][1]) != canon(o)]
+    undonated = m.patch_flushes_undonated - und0
+    churn = {"subscribes": applied["n"], "batches": len(churn_sm),
+             "stall_cycles_per_dispatch": PIPE_STALL_CYCLES,
+             "peak_in_flight": ring.peak_inflight,
+             "overlapped": ring.overlapped_total - ov0,
+             "undonated_flushes": undonated,
+             "flushes": m.patch_flushes, "degraded_batches": len(degraded),
+             "batch_p50_ms": float(np.percentile(lats_c, 50)) * 1e3,
+             "batch_p99_ms": float(np.percentile(lats_c, 99)) * 1e3,
+             "topics_per_s": PIPE_SMALL * len(churn_sm) / churn_s}
+    out = {"phase": "pipeline", "card": smi, "subs": PIPE_SUBS,
+           "build_s": build_s, "sync": sync, "pipelined": pipe,
+           "batch_p99_speedup": sync["batch_p99_ms"] / pipe["batch_p99_ms"],
+           "stage_latency_ms": stages,
+           "rows_checked": n_checked, "churn": churn,
+           "max_abs_err": holds}
+    print(json.dumps(out), flush=True)
+    if (bad_churn or bad_rows or undonated < 1 or degraded
+            or applied["n"] < PIPE_CHURN or churn["peak_in_flight"] < 2
+            or churn["overlapped"] < 1):
+        raise AssertionError(
+            f"pipeline churn: churn rows {bad_churn[:8]} and rows "
+            f"{bad_rows[:8]} differ from the oracle as of dispatch, "
+            f"{undonated} undonated flushes, degraded {degraded[:8]}, "
+            f"peak in flight {churn['peak_in_flight']}, "
+            f"{churn['overlapped']} overlapped dispatches")
+    return out
+
+
+def device_chaos_phase(torch, D, workloads, smi, dev):
+    """The device leg's failure boundary on the card, on a small matcher
+    (``config_wildcard(400)``): a dispatch ``error`` rule, a ``hang``
+    rule with the watchdog deadline pinned to its 0.25 s floor while a
+    sleep kernel holds the stream (the result's CUDA event stays pending,
+    so the quarantine must hold it until the event completes), and a
+    forced-open breaker that serves with no launch and re-closes through
+    the half-open canary. Each case ends with a batch the card serves,
+    undegraded and equal to the oracle. Returns the phase's summary."""
+    import asyncio
+
+    from bifromq_tpu_torch.models.matcher import TorchMatcher
+    from bifromq_tpu_torch.resilience.faults import get_injector
+    from bifromq_tpu_torch.utils.metrics import FABRIC, FabricMetric
+
+    pinned = {k: os.environ.get(k) for k in (
+        "BIFROMQ_DEVICE_DEADLINE_S", "BIFROMQ_DEVICE_BREAKER_RECOVERY_S")}
+    os.environ["BIFROMQ_DEVICE_DEADLINE_S"] = "0.25"
+    os.environ["BIFROMQ_DEVICE_BREAKER_RECOVERY_S"] = "0.5"
+    inj = get_injector()
+    cases = {}
+    try:
+        m = TorchMatcher.from_tries(workloads.config_wildcard(400, seed=2),
+                                    device=dev, match_cache=False,
+                                    auto_compact=False)
+        queries = [("tenant0", "/".join(t))
+                   for t in workloads.probe_topics(64, seed=3)]
+        want = [canon(r) for r in m.match_from_tries(queries)]
+        br = m.device_breaker
+
+        def serve():
+            """One async batch: rows exact, degraded reason, launches."""
+            torch.cuda.synchronize()
+            D.reset_launches()
+            stats = {}
+            rows = asyncio.run(m.match_batch_async(queries, stats=stats))
+            torch.cuda.synchronize()
+            exact = [canon(r) for r in rows] == want
+            return {"exact": exact, "degraded": stats.get("degraded"),
+                    "launches": _launches(D), "breaker": br.state}
+
+        def clean(label):
+            r = serve()
+            if not (r["exact"] and r["degraded"] is None
+                    and r["launches"]["fused_walk"]):
+                raise AssertionError(f"device-chaos {label}: the recovery "
+                                     f"batch was not served exactly on the "
+                                     f"card: {r}")
+            return r
+
+        deg0 = FABRIC.get(FabricMetric.MATCH_DEGRADED)
+        clean("warm")
+        # 1. a dispatch error degrades to the oracle
+        inj.add_rule(service="tpu-device", method="dispatch",
+                     action="error", max_hits=1)
+        c = {"faulted": serve()}
+        c["recovered"] = clean("error")
+        if not (c["faulted"]["exact"]
+                and c["faulted"]["degraded"] == "device_error"):
+            raise AssertionError(f"device-chaos error: {c}")
+        cases["error"] = c
+        inj.reset()
+        # 2. a hang times out; a sleep kernel queued right before the walk
+        #    holds the batch's kernels, copies and event for ~2 s, so the
+        #    quarantine must keep the result until its event completes
+        ring = m._ring
+        real_walk = m._walk_primary
+
+        def held_walk(probes, ct):
+            torch.cuda._sleep(4_000_000_000)     # ~2 s at 1.98 GHz
+            return real_walk(probes, ct)
+        m._walk_primary = held_walk
+        inj.add_rule(service="tpu-device", method="dispatch", action="hang")
+        stats = {}
+        t0 = time.perf_counter()
+        try:
+            rows = asyncio.run(m.match_batch_async(queries, stats=stats))
+        finally:
+            del m._walk_primary
+        c = {"faulted": {"exact": [canon(r) for r in rows] == want,
+                         "degraded": stats.get("degraded"),
+                         "seconds": time.perf_counter() - t0}}
+        inj.reset()
+        c["timeouts_total"] = ring.timeouts_total
+        c["held_after_reset"] = len(ring.quarantine)
+        ring.quarantine.sweep()
+        c["held_while_event_pending"] = len(ring.quarantine)
+        torch.cuda.synchronize()
+        ring.quarantine.sweep()
+        c["held_after_event"] = len(ring.quarantine)
+        c["recovered"] = clean("hang")
+        if not (c["faulted"]["exact"] and c["faulted"]["degraded"] == "timeout"
+                and c["timeouts_total"] == 1 and c["held_after_reset"] == 1
+                and c["held_while_event_pending"] == 1
+                and c["held_after_event"] == 0):
+            raise AssertionError(f"device-chaos hang: {c}")
+        cases["hang"] = c
+        # 3. an open breaker serves with no launch; the half-open canary
+        #    closes it after row parity
+        br.force_open()
+        c = {"open": serve()}
+        time.sleep(br.recovery_time + 0.05)
+        c["canary"] = serve()
+        c["recovered"] = clean("breaker")
+        if not (c["open"]["exact"] and c["open"]["degraded"] == "breaker"
+                and not any(c["open"]["launches"].values())
+                and c["canary"]["exact"] and c["canary"]["degraded"] is None
+                and c["canary"]["launches"]["fused_walk"]
+                and c["canary"]["breaker"] == "closed"):
+            raise AssertionError(f"device-chaos breaker: {c}")
+        cases["breaker"] = c
+        degraded = FABRIC.get(FabricMetric.MATCH_DEGRADED) - deg0
+    finally:
+        inj.reset()
+        for k, v in pinned.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+    out = {"phase": "device-chaos", "card": smi, "rows": len(queries),
+           "cases": cases, "match_degraded": degraded}
+    print(json.dumps(out), flush=True)
+    if degraded != 3 * len(queries):
+        raise AssertionError(f"device-chaos: {degraded} degraded rows, "
+                             f"expected {3 * len(queries)}")
+    return out
+
+
 def main() -> int:
     try:
         import torch
@@ -1297,6 +1829,7 @@ def main() -> int:
                       "bucket_visits": r["bucket_visits"]}), flush=True)
     k2_err = max(k2_err, k2_budgets_phase(torch, K, M, D, workloads, trie,
                                           probes, dev, smi))
+    k2_large_time(torch, K, M, workloads, trie, probes, dev, smi)
 
     # ---- K3: ragged-arange expansion --------------------------------------
     k3_err = k3_adversarial(torch, K, M, dev)
@@ -1417,6 +1950,25 @@ def main() -> int:
     k4_host_split(torch, K, D, dev, smi)
     mesh_launches, _ = mesh_phase(torch, dev, smi)
     mesh_peer_phase(torch, dev)
+
+    # ---- pipeline: the async serving leg (bench.py config 7) --------------
+    from bifromq_tpu_torch.resilience.device import DEVICE_BREAKERS
+    from bifromq_tpu_torch.utils.metrics import FABRIC, FabricMetric
+    pipe = pipeline_phase(torch, D, workloads, smi, dev)
+    k1_err = max(k1_err, pipe["max_abs_err"]["blake2b_levels"])
+    k2_err = max(k2_err, pipe["max_abs_err"]["fused_walk"])
+    k3_err = max(k3_err, pipe["max_abs_err"]["expand_pairs"])
+    degraded = FABRIC.get(FabricMetric.MATCH_DEGRADED)
+    if degraded:
+        return fail(f"{degraded} rows were served degraded outside the "
+                    f"device-chaos phase")
+    # ---- device-chaos: the failure boundary of the device leg -------------
+    device_chaos_phase(torch, D, workloads, smi, dev)
+    not_closed = {k: v for k, v in
+                  DEVICE_BREAKERS.states(include_closed=True).items()
+                  if v != "closed"}
+    if not_closed:
+        return fail(f"device breakers not closed at the end: {not_closed}")
 
     # ---- the kernels line -------------------------------------------------
     launches["ring_hop"] = mesh_launches["ring_hop"]

@@ -177,6 +177,18 @@ _, probes = tokenize.device_tokenize(
     TopicBytes.from_topics(workloads.hash_edge_topics(24)), [0] * 24,
     max_levels=16, salt=0, batch=32, device="cpu")
 assert probes.tok_h1.shape == (32, 17)
+# the pipelined, failure-bounded leg and its modules
+import asyncio
+import bifromq_tpu_torch.models.pipeline, bifromq_tpu_torch.obs.window
+import bifromq_tpu_torch.resilience.breaker
+import bifromq_tpu_torch.resilience.device
+import bifromq_tpu_torch.resilience.faults
+stats = {}
+res_async = asyncio.run(m.match_batch_async(
+    [("tenant0", t + "/x") for t in topics], stats=stats))
+assert "degraded" not in stats and m._ring.dispatched_total == 1
+assert [len(r.all_routes()) for r in res_async] == [len(r.all_routes())
+    for r in m.match_from_tries([("tenant0", t + "/x") for t in topics])]
 assert "jax" not in sys.modules, "jax imported"
 bad = [k for k in sys.modules
        if k == "bifromq_tpu" or k.startswith("bifromq_tpu.")]

@@ -115,6 +115,47 @@ def test_plain_walk_equals_lax_walk_at_every_budget(k, a):
     _assert_equal(ref, got, f"K {k} A {a}")
 
 
+@pytest.mark.parametrize("k", [257, 300, 512])
+def test_plain_walk_equals_lax_walk_past_256(k):
+    """State budgets past the walk kernel's old K = 256 ceiling, on the
+    seeded full-bucket tables with rows of up to 13 levels, which widen
+    past 2^10 candidates and so reach the sorted compaction at every one
+    of these K: the plain walk (what ``fused_walk_routes`` runs on CPU
+    tensors, and no longer raises for) equals the reference's lax
+    walk."""
+    d = tw.dense_walk_tables(0, batch=32, depth=13)
+    kw = dict(probe_len=16, k_states=k, max_intervals=64)
+    route = torch.from_numpy(d["route_tab"])
+    probes = tm.Probes(*(torch.from_numpy(d[f]) for f in (
+        "tok_h1", "tok_h2", "lengths", "roots", "sys_mask")),
+        int(d["lengths"].max()))
+    got = tk.fused_walk_routes(
+        tm.DeviceTrie(route, torch.from_numpy(d["edge_tab"]), None, None,
+                      route), probes, **kw)
+    ref = jm.walk_routes(
+        jm.DeviceTrie(d["route_tab"], d["edge_tab"], np.zeros(1, np.int32),
+                      None, d["route_tab"]),
+        jm.Probes(d["tok_h1"], d["tok_h2"], d["lengths"], d["roots"],
+                  d["sys_mask"]), esc_k=0, **kw)
+    _assert_equal(ref, got, f"K {k}")
+    assert got.overflow.any() and (d["lengths"] > 10).any()
+
+
+@pytest.mark.parametrize("k", [257, 300, 512, 1024])
+def test_torch_matcher_serves_every_state_budget(k):
+    """``TorchMatcher(k_states=K)`` past 256 serves every row equal to
+    the host oracle (on the CPU, through the plain walk)."""
+    from bifromq_tpu_torch.models.matcher import TorchMatcher
+    m = TorchMatcher.from_tries(tw.config_wildcard(2000, seed=3),
+                                k_states=k, device="cpu", match_cache=False)
+    queries = [("tenant0", "/".join(t)) for t in tw.probe_topics(64, seed=4)]
+    got = m.match_batch(queries)
+    want = m.match_from_tries(queries)
+    for g, w in zip(got, want):
+        assert sorted(map(repr, g.all_routes())) == \
+            sorted(map(repr, w.all_routes()))
+
+
 @pytest.mark.parametrize("seed,k,a", [(5, 4, 4)])
 def test_plain_walk_equals_pallas_interpret(seed, k, a):
     tries, topics = _world(seed)
