@@ -92,8 +92,8 @@ def level_hash(level: str, salt: int) -> Tuple[int, int]:
 
 
 def _mix_u32(node: np.ndarray, h1: np.ndarray, h2: np.ndarray) -> np.ndarray:
-    """Bucket-choice mixer #1; MUST stay in sync with ops.match._mix_u32
-    and mix_u32 in csrc/fused_walk.cu."""
+    """Bucket-choice mixer #1; MUST stay in sync with ops.match._mix_u32,
+    _mix_u32_int below and mix_u32 in csrc/fused_walk.cu."""
     with np.errstate(over="ignore"):
         x = node.astype(np.uint32) * np.uint32(0x9E3779B1)
         x ^= h1.astype(np.uint32) * np.uint32(0x85EBCA6B)
@@ -102,6 +102,22 @@ def _mix_u32(node: np.ndarray, h1: np.ndarray, h2: np.ndarray) -> np.ndarray:
         x ^= h2.astype(np.uint32) * np.uint32(0x27D4EB2F)
         x ^= x >> np.uint32(13)
     return x
+
+
+_U32 = 0xFFFFFFFF
+
+
+def _mix_u32_int(node: int, h1: int, h2: int) -> int:
+    """``_mix_u32`` of one (node, h1, h2) in Python ints: the patch
+    plane's per-edge bucket choice, which every subscribe through
+    consensus and every route a reset replays pays at each level,
+    without building three numpy arrays a call."""
+    x = ((node & _U32) * 0x9E3779B1) & _U32
+    x ^= ((h1 & _U32) * 0x85EBCA6B) & _U32
+    x ^= x >> 15
+    x = (x * 0xC2B2AE35) & _U32
+    x ^= ((h2 & _U32) * 0x27D4EB2F) & _U32
+    return x ^ (x >> 13)
 
 
 @dataclass
@@ -698,9 +714,7 @@ class PatchableTrie(CompiledTrie):
         return nid
 
     def _bucket_of(self, nid: int, h1: int, h2: int) -> int:
-        x = _mix_u32(np.array([nid], np.int32), np.array([h1], np.int32),
-                     np.array([h2], np.int32))[0]
-        return int(x & np.uint32(self.edge_tab.shape[0] - 1))
+        return _mix_u32_int(nid, h1, h2) & (self.edge_tab.shape[0] - 1)
 
     def _edge_child(self, nid: int, h1: int, h2: int) -> int:
         row = self.edge_tab[self._bucket_of(nid, h1, h2)]

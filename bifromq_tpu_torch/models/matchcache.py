@@ -1,7 +1,6 @@
 """Match-result cache plane (copy of ``bifromq_tpu/models/matchcache.py``
-without the TTL, the injectable clock and metrics section, and the
-digest's ``hot_keys``, which only the reference's pub plane and gossip
-use).
+without the injectable metrics section and the digest's ``hot_keys``,
+which only the reference's gossip uses).
 
 The reference broker fronts its trie walk with a ``TenantRouteCache`` /
 ``SubscriptionCache`` (bifromq-dist-worker .../cache/TenantRouteCache.java:65)
@@ -26,13 +25,24 @@ store when any invalidation landed in between, so a mutation during a
 match can never be erased by stamping a stale result with the post-bump
 state.
 
+Two deployments of the same class:
+
+- ``TorchMatcher`` (scope ``"matcher"``): authoritative per-range cache,
+  no TTL — every mutation flows through the owning matcher, so
+  epoch/evict invalidation is complete;
+- ``DistService`` (scope ``"pub"``): frontend pub-side cache with a TTL
+  that bounds staleness from mutations applied on OTHER nodes when the
+  worker is remote (the reference's refresh window); with a local worker
+  the coproc's apply-stream hook makes invalidation exact there too.
+
 Counters feed the process-global ``utils.metrics.MATCH_CACHE`` section
 per scope.
 """
 
 from __future__ import annotations
 
-from typing import Dict, Optional, Sequence, Tuple
+import time
+from typing import Callable, Dict, Optional, Sequence, Tuple
 
 from ..utils import topic as topic_util
 from ..utils.metrics import MATCH_CACHE
@@ -59,7 +69,7 @@ class _TenantSlot:
         # recreated can therefore never alias a token snapshotted against
         # its previous life, no matter how the interleaving goes
         self.seq = seq0
-        # topic key -> (generation, epoch, caps, MatchedRoutes);
+        # topic key -> (generation, epoch, expires, caps, MatchedRoutes);
         # ONE caps variant per topic (caps are per-tenant settings and
         # effectively constant — a caps change is a miss + overwrite),
         # which keeps exact-filter eviction a single dict pop.
@@ -75,7 +85,9 @@ class TenantMatchCache:
     def __init__(self, *, scope: str = "matcher",
                  max_topics_per_tenant: int = 8192,
                  max_tenants: int = 4096,
-                 max_entries: int = 1 << 16) -> None:
+                 max_entries: int = 1 << 16,
+                 ttl_s: Optional[float] = None,
+                 clock: Callable[[], float] = time.monotonic) -> None:
         self.scope = scope
         self.max_topics_per_tenant = max_topics_per_tenant
         self.max_tenants = max_tenants
@@ -84,6 +96,8 @@ class TenantMatchCache:
         # accumulate; past the bound the oldest-inserted tenant's oldest
         # entries go first
         self.max_entries = max_entries
+        self.ttl_s = ttl_s
+        self._clock = clock
         self._gen = 0
         self._seq_src = 1
         self._total = 0
@@ -168,8 +182,9 @@ class TenantMatchCache:
         s = self._slots.get(tenant)
         ent = s.entries.get(topic_key) if s is not None else None
         if ent is not None:
-            gen, epoch, ecaps, m = ent
-            if gen == self._gen and epoch == s.epoch and ecaps == caps:
+            gen, epoch, expires, ecaps, m = ent
+            if (gen == self._gen and epoch == s.epoch and ecaps == caps
+                    and (expires is None or self._clock() < expires)):
                 # true LRU: refresh recency (dict insertion order)
                 del s.entries[topic_key]
                 s.entries[topic_key] = ent
@@ -205,7 +220,9 @@ class TenantMatchCache:
                 self._total -= 1
                 self._count_evictions(1)
             self._total += 1
-        s.entries[topic_key] = (self._gen, s.epoch, caps, result)
+        expires = (self._clock() + self.ttl_s
+                   if self.ttl_s is not None else None)
+        s.entries[topic_key] = (self._gen, s.epoch, expires, caps, result)
         return True
 
     # ---------------- invalidation -----------------------------------------

@@ -170,6 +170,17 @@ def apply_log_op(tries: Dict[str, SubscriptionTrie], op: Tuple) -> None:
                 del tries[tenant]
 
 
+def _safe_hook(cb, what: str, *args) -> None:
+    """Fire an optional observer hook without letting it poison the
+    mutation/install path (the dist coproc's apply-stream outlet)."""
+    if cb is None:
+        return
+    try:
+        cb(*args)
+    except Exception:  # noqa: BLE001 — observers must not break serving
+        logging.getLogger(__name__).exception("%s hook failed", what)
+
+
 class TorchMatcher:
     # the pipelined leg (match_batch_async) drives _dispatch_prepared
     # directly; a subclass replacing the whole device plane (the mesh)
@@ -257,6 +268,17 @@ class TorchMatcher:
         self.patch_flushes_undonated = 0
         self.patch_host_s = 0.0
         self.patch_device_s = 0.0
+
+    def clone_empty(self) -> "TorchMatcher":
+        """A fresh matcher with the same configuration on the same
+        device — the dist coproc's reset-from-KV rebuild target."""
+        return TorchMatcher(max_levels=self.max_levels,
+                            k_states=self.k_states,
+                            probe_len=self.probe_len, device=self.device,
+                            auto_compact=self.auto_compact,
+                            compact_threshold=self.compact_threshold,
+                            max_intervals=self.max_intervals,
+                            match_cache=self.match_cache is not None)
 
     @classmethod
     def from_tries(cls, tries: Dict[str, SubscriptionTrie],

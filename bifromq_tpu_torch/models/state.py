@@ -13,11 +13,16 @@ The layouts are the same column for column.
 state and returns the port's ``PatchableTrie`` and its ``DeviceTrie``,
 so the port can serve and keep patching the very arenas the reference
 built.
+
+``kv_engine_from_items`` rebuilds a reference KV engine's spaces (route
+records and range metadata) as the port's ``InMemKVEngine``, so a port
+``DistWorker`` opened on it takes the reset-from-KV path over the very
+route table the reference wrote.
 """
 
 from __future__ import annotations
 
-from typing import Mapping, Tuple
+from typing import Iterable, Mapping, Tuple
 
 import numpy as np
 import torch
@@ -98,3 +103,23 @@ def patchable_from_numpy(*, matchings, tenant_root, n_live: int, salt: int,
         salt=salt, probe_len=probe_len, max_levels=max_levels,
         dead_slots=dead_slots, garbage_slots=garbage_slots)
     return pt, DeviceTrie.from_compiled(pt, device=dev)
+
+
+def kv_engine_from_items(
+        spaces: Mapping[str, Tuple[Iterable[Tuple[bytes, bytes]],
+                                   Mapping[bytes, bytes]]]):
+    """``spaces``: ``{name: (items, metadata)}`` — each space's ``(key,
+    value)`` records and its metadata records, as bytes. Returns the
+    port's :class:`~bifromq_tpu_torch.kv.engine.InMemKVEngine` holding
+    the same spaces, record for record."""
+    from ..kv.engine import InMemKVEngine
+    engine = InMemKVEngine()
+    for name, (items, metadata) in spaces.items():
+        space = engine.create_space(name)
+        w = space.writer()
+        for k, v in items:
+            w.put(bytes(k), bytes(v))
+        w.done()
+        for k, v in metadata.items():
+            space.put_metadata(bytes(k), bytes(v))
+    return engine

@@ -7,7 +7,10 @@
   the dispatch ring's readiness poll.
 - ``device``: the device watchdog deadline, the buffer quarantine, the
   device breaker board and the bounded-slot admission under the ring.
+- ``policy``: the per-call deadline budget the dist worker checks at
+  each range's dispatch boundary.
 
 Retry policies, the breaker registry of the RPC fabric, load shedding
-and the ingest gate come with the broker assembly (ROADMAP A.5).
+and the ingest gate come with the MQTT frontend and the fabric
+(ROADMAP A.5b).
 """

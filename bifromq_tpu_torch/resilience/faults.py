@@ -16,6 +16,11 @@ poll:
 - ``flaky_ready``: each readiness poll lies "not ready" with the rule's
   probability; completion is only delayed, never denied.
 
+The dist worker adds one matcher-side hook: an ``error`` rule for
+``service="tpu-matcher"`` (side ``"matcher"``, method ``"match"``) fails
+a range's match at its dispatch boundary, and the worker serves that
+range from the host oracle (``check_raise``).
+
 Everything is deterministic under a seeded ``random.Random``; injected
 faults are counted globally (``utils.metrics.FABRIC``) and per rule.
 """
@@ -48,7 +53,7 @@ class FaultRule:
 
 class InjectedFault(Exception):
     """Raised for action="error" at a hook point (the device's dispatch
-    or fetch)."""
+    or fetch, the dist worker's match boundary)."""
 
 
 class FaultInjector:

@@ -95,7 +95,23 @@ with an NVIDIA H100 and the CUDA toolkit. The script
    with 16 subscribes landing between dispatches, each churn row equal
    to the oracle as of its batch's dispatch and at least one patch flush
    that wrote new tables because a batch was in flight;
-10. ("device-chaos") on a 400-subscription matcher: a dispatch error,
+10. ("dist") drives the broker's publish path through its entry points:
+   ``DistService`` over a default ``DistWorker()`` (one raft voter, one
+   range, the coproc's ``TorchMatcher()`` on the card, the pub cache
+   on). It subscribes config 7's 200K routes through consensus
+   (``DistService.match``, 1000 gathered at a time), then publishes
+   4096 probe topics through ``DistService.pub`` in gathered windows of
+   256 to sub-brokers 0 and 1 that record every delivery, with the
+   launch counts reset just before and read just after (the hash, the
+   walk and the expansion must each have launched): every publish's
+   fan-out equals the host oracle's route count, and 256 sampled
+   publishes delivered, in order, the list the fan-out makes of the sync
+   device leg's row, which equals the oracle's. Then 64 subscribes and
+   64 unsubscribes, each seen by the next publish; then a split of the
+   range at its median key and 512 publishes checked in full against the
+   union of the two ranges' rows (two ``TorchMatcher`` on the card). No
+   publish may be degraded, and every matcher must drain;
+11. ("device-chaos") on a 400-subscription matcher: a dispatch error,
    a hang under a 0.25 s watchdog deadline with the batch held on the
    card by a sleep kernel (the quarantine keeps the result until its
    CUDA event completes, then a sweep empties it) and a forced-open
@@ -1617,6 +1633,339 @@ def pipeline_phase(torch, D, workloads, smi, dev):
     return out
 
 
+DIST_SUBS = 200_000       # bench.py config 7's population (BENCH_PIPE_SUBS)
+DIST_LOAD_CHUNK = 1000    # gathered subscribes, as the consensus churn test
+DIST_PUBS = 4096
+DIST_WINDOW = 256
+DIST_CHURN = 64
+DIST_SPLIT_PUBS = 512
+
+
+def fan_out_order(rows):
+    """The delivery order ``DistService._fan_out_inner`` gives a row of
+    normal routes: grouped per (broker, deliverer key) in order of first
+    appearance, each group in row order."""
+    groups = {}
+    for r in rows:
+        groups.setdefault((r.broker_id, r.deliverer_key), []).append(r)
+    return [(b, dk, r.receiver_id) for (b, dk), rs in groups.items()
+            for r in rs]
+
+
+def union_rows(per_range, mpf: int, mgf: int):
+    """Rows of the ranges a tenant spans, unioned in range order with the
+    tenant's caps applied again over the union (``DistWorker.match_batch``
+    on a tenant that straddles a split)."""
+    from bifromq_tpu_torch.models.oracle import (PERSISTENT_SUB_BROKER_ID,
+                                                 MatchedRoutes)
+    out = []
+    for ms in zip(*per_range):
+        merged = MatchedRoutes()
+        groups = {}
+        for m in ms:
+            for r in m.normal:
+                if r.broker_id == PERSISTENT_SUB_BROKER_ID:
+                    if merged.persistent_fanout >= mpf:
+                        merged.max_persistent_fanout_exceeded = True
+                        continue
+                    merged.persistent_fanout += 1
+                merged.normal.append(r)
+            for f, members in m.groups.items():
+                groups.setdefault(f, []).extend(members)
+        for f, members in groups.items():
+            if len(merged.groups) >= mgf:
+                merged.max_group_fanout_exceeded = True
+                continue
+            merged.groups[f] = members
+        out.append(merged)
+    return out
+
+
+def dist_phase(torch, D, workloads, smi):
+    """The dist plane on the card — the broker's publish path through
+    its user entry points: ``DistService(SubBrokerRegistry(),
+    CollectingEventCollector(), DefaultSettingProvider())`` over a default
+    ``DistWorker()`` (one voter, one range, the in-memory engine, the
+    coproc's ``TorchMatcher()`` on the card, the pub cache on).
+
+    - Load: the routes of bench.py config 7's population
+      (``config_wildcard(200_000, seed=0)``) as ``DistService.match``
+      calls through consensus, gathered 1000 at a time.
+    - Publish: 4096 ``probe_topics(4096, seed=1)`` publishes through
+      ``DistService.pub`` in gathered windows of 256, with the launch
+      counts reset just before and read just after (K1, K2 and K3 must
+      each have launched). Every publish's fan-out equals the host
+      oracle's route count under the tenant's caps; 256 sampled
+      publishes delivered exactly the (broker, deliverer key, receiver)
+      list, in order, that the fan-out makes of the sync device leg's
+      row, and that row equals the host oracle's.
+    - Churn: 64 subscribes ``bench/churn/{i}/+``, each followed by a
+      publish of ``bench/churn/{i}/x`` that must reach the new receiver;
+      then 64 unsubscribes, each followed by one that must not.
+    - Split: ``store.split`` at the median route key, then 512 publishes
+      checked in full against the union of the two ranges' rows.
+
+    No publish may be degraded, and every matcher drains at the end.
+    Returns the phase's summary."""
+    import asyncio
+
+    import numpy as np
+    from bifromq_tpu_torch.dist.service import DistService
+    from bifromq_tpu_torch.kv import schema
+    from bifromq_tpu_torch.plugin.events import (CollectingEventCollector,
+                                                 EventType)
+    from bifromq_tpu_torch.plugin.settings import (DefaultSettingProvider,
+                                                   Setting)
+    from bifromq_tpu_torch.plugin.subbroker import (DeliveryResult,
+                                                    ISubBroker,
+                                                    SubBrokerRegistry)
+    from bifromq_tpu_torch.types import (ClientInfo, Message, QoS,
+                                         RouteMatcher)
+    from bifromq_tpu_torch.utils.hlc import HLC
+    from bifromq_tpu_torch.utils.metrics import (FABRIC, STAGES,
+                                                 FabricMetric)
+
+    delivered = []      # (publish index, broker, deliverer key, receiver)
+
+    class Collecting(ISubBroker):
+        def __init__(self, broker_id: int) -> None:
+            self.id = broker_id
+
+        async def deliver(self, tenant_id, deliverer_key, packs):
+            out = {}
+            for dp in packs:
+                for pmp in dp.message_pack.packs:
+                    for msg in pmp.messages:
+                        idx = int(msg.payload)
+                        for mi in dp.match_infos:
+                            delivered.append((idx, self.id, deliverer_key,
+                                              mi.receiver_id))
+                for mi in dp.match_infos:
+                    out[mi] = DeliveryResult.OK
+            return out
+
+    registry = SubBrokerRegistry()
+    for b in (0, 1):
+        registry.register(Collecting(b))
+    events = CollectingEventCollector()
+    settings = DefaultSettingProvider()
+    tenant = "tenant0"
+    mpf = settings.provide(Setting.MaxPersistentFanout, tenant) \
+        or Setting.MaxPersistentFanout.default
+    mgf = settings.provide(Setting.MaxGroupFanout, tenant) \
+        or Setting.MaxGroupFanout.default
+    publisher = ClientInfo(tenant_id=tenant)
+    deg0 = FABRIC.get(FabricMetric.MATCH_DEGRADED)
+    t_phase = time.perf_counter()
+    out = {"phase": "dist", "card": smi, "subs": DIST_SUBS}
+
+    async def publish(indices_topics, lats=None):
+        """One window of publishes; each payload carries its index."""
+        async def one(idx, topic):
+            s0 = time.perf_counter()
+            r = await svc.pub(publisher, topic, Message(
+                message_id=idx, pub_qos=QoS.AT_MOST_ONCE,
+                payload=str(idx).encode(), timestamp=HLC.INST.get()))
+            if lats is not None:
+                lats.append(time.perf_counter() - s0)
+            return r
+        return await asyncio.gather(*(one(i, t) for i, t in indices_topics))
+
+    def by_publish(start: int):
+        """The deliveries recorded from ``delivered[start]`` on, per
+        publish index."""
+        got = {}
+        for idx, b, dk, recv in delivered[start:]:
+            got.setdefault(idx, []).append((b, dk, recv))
+        return got
+
+    def check(rows_device, rows_oracle, results, got, first_idx, full):
+        """Fan-out counts against the oracle for every publish; the
+        delivered lists of ``full`` (indices into the window) in order
+        against the fan-out of the device rows, which must equal the
+        oracle's as sets."""
+        bad = []
+        for j, (res, o) in enumerate(zip(results, rows_oracle)):
+            want = len(o.normal) + sum(1 for ms in o.groups.values() if ms)
+            if not (res.ok and res.fanout == want):
+                bad.append(("fanout", first_idx + j, res.fanout, want))
+        for j in full:
+            d, o = rows_device[j], rows_oracle[j]
+            if o.groups or canon(d) != canon(o):
+                bad.append(("row", first_idx + j))
+            elif got.get(first_idx + j, []) != fan_out_order(d.normal):
+                bad.append(("delivered", first_idx + j))
+        return bad
+
+    async def run():
+        nonlocal svc
+        svc = DistService(registry, events, settings)
+        await svc.start()
+        worker = svc.worker
+        # ---- load: config 7's routes through consensus
+        routes = list(workloads.config_wildcard(DIST_SUBS, seed=0)
+                      [tenant].routes())
+        sched = worker._mutation_scheduler
+        t0 = time.perf_counter()
+        for c in range(0, len(routes), DIST_LOAD_CHUNK):
+            oks = await asyncio.gather(*(
+                svc.match(tenant, r.matcher, r.broker_id, r.receiver_id,
+                          r.deliverer_key, r.incarnation)
+                for r in routes[c:c + DIST_LOAD_CHUNK]))
+            if not all(oks):
+                raise AssertionError(f"dist load: {oks.count(False)} "
+                                     f"subscribes refused")
+        load_s = time.perf_counter() - t0
+        m = worker.matcher
+        out["load"] = {
+            "seconds": load_s, "mutations_per_s": len(routes) / load_s,
+            "raft_entries": sum(sched.batcher(rid).batches_emitted
+                                for rid in worker.store.ranges),
+            "compiles": m.compile_count, "compile_s": m.compile_time_s,
+            "patches": m.patch_count, "patch_fallbacks": m.patch_fallbacks,
+            "patch_flushes": m.patch_flushes, "keys": len(worker.space)}
+        print(json.dumps({"phase": "dist-load", **out["load"]}), flush=True)
+
+        # ---- publish: 4096 probe topics in gathered windows of 256
+        topics = ["/".join(t) for t in workloads.probe_topics(DIST_PUBS,
+                                                             seed=1)]
+        await publish([(0, topics[0])])        # the ring and the pub batcher
+        delivered.clear()
+        STAGES.reset()
+        lats, results = [], []
+        torch.cuda.synchronize()
+        D.reset_launches()
+        t0 = time.perf_counter()
+        for w in range(0, DIST_PUBS, DIST_WINDOW):
+            results += await publish(
+                [(i, topics[i]) for i in range(w, w + DIST_WINDOW)], lats)
+        torch.cuda.synchronize()
+        pub_s = time.perf_counter() - t0
+        launched = _launches(D)
+        n_deliv = len(delivered)
+        stages = STAGES.snapshot()
+        t0 = time.perf_counter()
+        queries = [(tenant, t) for t in topics]
+        oracle = m.match_from_tries(queries, max_persistent_fanout=mpf,
+                                    max_group_fanout=mgf)
+        step = DIST_PUBS // ORACLE_SAMPLE
+        sample = list(range(0, DIST_PUBS, step))[:ORACLE_SAMPLE]
+        device_rows = [None] * DIST_PUBS
+        for i, r in zip(sample, m._match_batch_device(
+                [queries[i] for i in sample], max_persistent_fanout=mpf,
+                max_group_fanout=mgf)):
+            device_rows[i] = r
+        bad = check(device_rows, oracle, results, by_publish(0), 0, sample)
+        out["publish"] = {
+            "publishes": DIST_PUBS, "window": DIST_WINDOW,
+            "publishes_per_s": DIST_PUBS / pub_s,
+            "deliveries": n_deliv, "deliveries_per_s": n_deliv / pub_s,
+            "fanout_mean": n_deliv / DIST_PUBS,
+            "pub_latency_ms": _pcts(lats), "launches": launched,
+            "rows_checked": len(sample),
+            "check_s": time.perf_counter() - t0, "stage_latency_ms": stages,
+            "pub_cache": svc._match_cache.snapshot(),
+            "bad": bad[:8]}
+        missing = [k for k in ("blake2b_levels", "fused_walk",
+                               "expand_pairs") if not launched[k]]
+        if missing or bad:
+            raise AssertionError(f"dist publish: kernels not launched "
+                                 f"{missing}, mismatches {bad[:8]}")
+
+        # ---- churn: a subscribe is seen by the very next publish, an
+        # unsubscribe by the next one after it
+        idx = DIST_PUBS
+        churn_bad = []
+        t0 = time.perf_counter()
+        for sub in (True, False):
+            for i in range(DIST_CHURN):
+                f = RouteMatcher.from_topic_filter(f"bench/churn/{i}/+")
+                recv = f"churn{i}"
+                if sub:
+                    ok = await svc.match(tenant, f, 0, recv, "dchurn")
+                else:
+                    ok = await svc.unmatch(tenant, f, 0, recv, "dchurn")
+                topic = f"bench/churn/{i}/x"
+                n0 = len(delivered)
+                (res,) = await publish([(idx, topic)])
+                got = by_publish(n0).get(idx, [])
+                (o,) = m.match_from_tries([(tenant, topic)],
+                                          max_persistent_fanout=mpf,
+                                          max_group_fanout=mgf)
+                if not (ok and ((0, "dchurn", recv) in got) == sub
+                        and res.fanout == len(o.normal) == len(got)):
+                    churn_bad.append((sub, i, ok, res.fanout, len(got)))
+                idx += 1
+        out["churn"] = {"subscribes": DIST_CHURN,
+                        "unsubscribes": DIST_CHURN,
+                        "seconds": time.perf_counter() - t0,
+                        "patches": m.patch_count,
+                        "compiles": m.compile_count, "bad": churn_bad[:8]}
+        if churn_bad:
+            raise AssertionError(f"dist churn: {churn_bad[:8]}")
+
+        # ---- split at the median route key: the tenant straddles two
+        # ranges, each with its own TorchMatcher on the card
+        (rid,) = list(worker.store.ranges)
+        keys = [k for k, _ in worker.store.ranges[rid].space.iterate()]
+        t0 = time.perf_counter()
+        await worker.store.split(rid, keys[len(keys) // 2])
+        split_s = time.perf_counter() - t0
+        pfx = schema.tenant_route_prefix(tenant)
+        rids = worker.store.router.intersecting(pfx, schema.prefix_end(pfx))
+        if len(rids) != 2:
+            raise AssertionError(f"dist split: the tenant spans {rids}")
+        coprocs = [worker.store.coprocs[r] for r in rids]
+        split_topics = ["/".join(t) for t in
+                        workloads.probe_topics(DIST_SPLIT_PUBS, seed=2)]
+        base, n0 = idx, len(delivered)
+        D.reset_launches()
+        results = await publish([(base + j, t)
+                                 for j, t in enumerate(split_topics)])
+        split_launches = _launches(D)
+        t0 = time.perf_counter()
+        queries = [(tenant, t) for t in split_topics]
+        kw = dict(max_persistent_fanout=mpf, max_group_fanout=mgf)
+        device_rows = union_rows([c.matcher._match_batch_device(queries, **kw)
+                                  for c in coprocs], mpf, mgf)
+        oracle = union_rows([c.matcher.match_from_tries(queries, **kw)
+                             for c in coprocs], mpf, mgf)
+        bad = check(device_rows, oracle, results, by_publish(n0), base,
+                    range(DIST_SPLIT_PUBS))
+        out["split"] = {"seconds": split_s, "ranges": len(worker.store.ranges),
+                        "keys": [len(worker.store.ranges[r].space)
+                                 for r in rids],
+                        "publishes": DIST_SPLIT_PUBS,
+                        "check_s": time.perf_counter() - t0,
+                        "launches": split_launches, "bad": bad[:8]}
+        if bad or not split_launches["fused_walk"]:
+            raise AssertionError(f"dist split: launches {split_launches}, "
+                                 f"mismatches {bad[:8]}")
+
+        # ---- every range's matcher drains, then the service stops
+        t0 = time.perf_counter()
+        drained = [await c.matcher.drain_device()
+                   for c in worker.store.coprocs.values()]
+        await svc.stop()
+        out["stop"] = {"drained": drained,
+                       "seconds": time.perf_counter() - t0}
+        if not all(drained):
+            raise AssertionError(f"dist: a matcher did not drain {drained}")
+
+    svc = None
+    try:
+        asyncio.run(run())
+    finally:
+        out["seconds"] = time.perf_counter() - t_phase
+        out["match_degraded"] = FABRIC.get(FabricMetric.MATCH_DEGRADED) - deg0
+        out["degraded_events"] = len(events.of(EventType.MATCH_DEGRADED))
+        print(json.dumps(out), flush=True)
+    if out["match_degraded"] or out["degraded_events"]:
+        raise AssertionError(f"dist: {out['match_degraded']} rows served "
+                             f"degraded")
+    return out
+
+
 def device_chaos_phase(torch, D, workloads, smi, dev):
     """The device leg's failure boundary on the card, on a small matcher
     (``config_wildcard(400)``): a dispatch ``error`` rule, a ``hang``
@@ -1876,6 +2225,7 @@ def main() -> int:
                       "oracle_rows_checked": len(sample),
                       "launches": launched})
     launches = {k: v.launches for k, v in D.KERNELS.items()}
+    single_launches = dict(launches)
     print(json.dumps({"phase": "serve", "subs": N_SUBS, "batch": B_SERVE,
                       "card": smi, "batches": serve,
                       "launches": launches}), flush=True)
@@ -1958,6 +2308,8 @@ def main() -> int:
     k1_err = max(k1_err, pipe["max_abs_err"]["blake2b_levels"])
     k2_err = max(k2_err, pipe["max_abs_err"]["fused_walk"])
     k3_err = max(k3_err, pipe["max_abs_err"]["expand_pairs"])
+    # ---- dist: the broker's publish path (DistService -> DistWorker) ----
+    dist = dist_phase(torch, D, workloads, smi)
     degraded = FABRIC.get(FabricMetric.MATCH_DEGRADED)
     if degraded:
         return fail(f"{degraded} rows were served degraded outside the "
@@ -1988,6 +2340,11 @@ def main() -> int:
         out.append({"name": name, "route": "cuda",
                     "source": f"bifromq_tpu_torch/csrc/{src}",
                     "replaces": replaces, "launches": launches[name],
+                    "launches_by_path": {
+                        "single": single_launches[name],
+                        "mesh": mesh_launches[name],
+                        "pipelined": pipe["pipelined"]["launches"][name],
+                        "dist": dist["publish"]["launches"][name]},
                     "max_abs_err": err, "ms": r["ms"],
                     "plain_ms": r["plain_ms"], "bound_ms": bound_ms(r),
                     "bound_by": bound_by(r),

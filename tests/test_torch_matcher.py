@@ -189,6 +189,52 @@ res_async = asyncio.run(m.match_batch_async(
 assert "degraded" not in stats and m._ring.dispatched_total == 1
 assert [len(r.all_routes()) for r in res_async] == [len(r.all_routes())
     for r in m.match_from_tries([("tenant0", t + "/x") for t in topics])]
+# the dist plane: one publish through DistService -> DistWorker (one
+# voter, one range, routes through consensus) -> match_batch_async
+import bifromq_tpu_torch.dist.service, bifromq_tpu_torch.dist.worker
+import bifromq_tpu_torch.kv.balance, bifromq_tpu_torch.kv.engine
+import bifromq_tpu_torch.kv.load, bifromq_tpu_torch.kv.range
+import bifromq_tpu_torch.kv.schema, bifromq_tpu_torch.kv.store
+import bifromq_tpu_torch.plugin.events, bifromq_tpu_torch.plugin.settings
+import bifromq_tpu_torch.plugin.subbroker, bifromq_tpu_torch.raft.node
+import bifromq_tpu_torch.raft.transport, bifromq_tpu_torch.rpc.fabric
+import bifromq_tpu_torch.resilience.policy, bifromq_tpu_torch.utils.hlc
+import bifromq_tpu_torch.scheduler.batcher, bifromq_tpu_torch.utils.sysprops
+from bifromq_tpu_torch.dist.service import DistService
+from bifromq_tpu_torch.dist.worker import DistWorker
+from bifromq_tpu_torch.plugin.events import CollectingEventCollector
+from bifromq_tpu_torch.plugin.settings import DefaultSettingProvider
+from bifromq_tpu_torch.plugin.subbroker import (DeliveryResult, ISubBroker,
+                                                SubBrokerRegistry)
+from bifromq_tpu_torch.types import ClientInfo, Message, QoS
+from bifromq_tpu_torch.utils.hlc import HLC
+class Sink(ISubBroker):
+    id = 0
+    got = []
+    async def deliver(self, tenant_id, deliverer_key, packs):
+        out = {}
+        for dp in packs:
+            for mi in dp.match_infos:
+                self.got.append(mi.receiver_id)
+                out[mi] = DeliveryResult.OK
+        return out
+async def publish():
+    reg = SubBrokerRegistry()
+    reg.register(Sink())
+    svc = DistService(reg, CollectingEventCollector(),
+                      DefaultSettingProvider(), worker=DistWorker(
+                          matcher_factory=lambda: TorchMatcher(device="cpu")))
+    await svc.start()
+    try:
+        assert await svc.match("T", RouteMatcher.from_topic_filter("a/+"),
+                               0, "r1", "d0")
+        return await svc.pub(ClientInfo(tenant_id="T"), "a/b", Message(
+            message_id=1, pub_qos=QoS.AT_MOST_ONCE, payload=b"x",
+            timestamp=HLC.INST.get()))
+    finally:
+        await svc.stop()
+pr = asyncio.run(publish())
+assert pr.ok and pr.fanout == 1 and Sink.got == ["r1"], (pr, Sink.got)
 assert "jax" not in sys.modules, "jax imported"
 bad = [k for k in sys.modules
        if k == "bifromq_tpu" or k.startswith("bifromq_tpu.")]

@@ -211,6 +211,9 @@ def test_mix_u32_edges(vals):
                       dtype=torch.int32), torch.tensor([h2],
                                                        dtype=torch.int32))
     assert int(got[0]) == int(ref[0])
+    # the patch plane's scalar copy of the mixer
+    from bifromq_tpu_torch.models.automaton import _mix_u32_int
+    assert _mix_u32_int(int(node32[0]), h1, h2) == int(ref[0]) & 0xFFFFFFFF
 
 
 def test_mix_u32_random_lanes():
@@ -219,7 +222,11 @@ def test_mix_u32_random_lanes():
     a, b, c = (rng.integers(-2**31, 2**31, size=4096, dtype=np.int64)
                .astype(np.int32) for _ in range(3))
     got = tm._mix_u32(*(torch.from_numpy(x) for x in (a, b, c))).numpy()
-    assert (got == ref_mix(a, b, c).astype(np.int64)).all()
+    want = ref_mix(a, b, c)
+    assert (got == want.astype(np.int64)).all()
+    from bifromq_tpu_torch.models.automaton import _mix_u32_int
+    assert [_mix_u32_int(int(x), int(y), int(z))
+            for x, y, z in zip(a, b, c)] == want.astype(np.int64).tolist()
 
 
 def test_bitonic_matches_sort():
