@@ -999,21 +999,28 @@ def _tokenize_cached(keys, roots: Sequence[int], cache: TokenCache, *,
 
 
 def tokenize(topics, roots: Sequence[int], *, max_levels: int, salt: int,
-             batch: Optional[int] = None,
+             batch: Optional[int] = None, native: bool = True,
              cache: Optional[TokenCache] = None) -> TokenizedTopics:
     """Hash topic levels into a padded probe batch on the host.
 
     ``topics`` are pre-parsed level lists (utils.topic.parse), raw topic
     strings, or one pre-packed :class:`~bifromq_tpu_torch.models.bytetok.
-    TopicBytes` batch (which takes the vectorized numpy tokenizer);
-    ``roots`` the per-topic tenant root ids (CompiledTrie.root_of).
-    Topics longer than ``max_levels`` are marked as padding and must take
-    the host fallback. With ``cache``, repeated topics skip hashing.
+    TopicBytes` batch; ``roots`` the per-topic tenant root ids
+    (CompiledTrie.root_of). Topics longer than ``max_levels`` are marked
+    as padding and must take the host fallback. With ``cache``, repeated
+    topics skip hashing.
+
+    ``native=True`` (the serving default) runs the C++ tokenizer
+    (``models/native_tok.py``); a helper that fails to build or load
+    raises :class:`~bifromq_tpu_torch.utils.nativelib.NativeLibError`
+    and is never served around. ``native=False`` runs the per-level
+    Python loop below, the semantics reference.
     """
     from .bytetok import TopicBytes
     if isinstance(topics, TopicBytes):
         return _tokenize_topic_bytes(topics, roots, max_levels=max_levels,
-                                     salt=salt, batch=batch, cache=cache)
+                                     salt=salt, batch=batch, native=native,
+                                     cache=cache)
     if cache is not None:
         n = len(topics)
         keys = [t if isinstance(t, (str, bytes)) else tuple(t)
@@ -1023,7 +1030,10 @@ def tokenize(topics, roots: Sequence[int], *, max_levels: int, salt: int,
             width=max_levels + 1, salt=salt,
             miss_tokenize=lambda idx: tokenize(
                 [topics[i] for i in idx], [0] * len(idx),
-                max_levels=max_levels, salt=salt))
+                max_levels=max_levels, salt=salt, native=native))
+    if native:
+        return _tokenize_native(topics, roots, max_levels=max_levels,
+                                salt=salt, batch=batch)
     n = len(topics)
     b = batch or n
     assert b >= n
@@ -1052,13 +1062,22 @@ def tokenize(topics, roots: Sequence[int], *, max_levels: int, salt: int,
                            roots=rootv, sys_mask=sys_mask)
 
 
+def _tokenize_native(topics, roots: Sequence[int], *, max_levels: int,
+                     salt: int, batch: Optional[int]) -> TokenizedTopics:
+    from .native_tok import tokenize_topics_native
+    h1, h2, lengths, rootv, sysm = tokenize_topics_native(
+        topics, roots, max_levels=max_levels, salt=salt, batch=batch)
+    return TokenizedTopics(tok_h1=h1, tok_h2=h2, lengths=lengths,
+                           roots=rootv, sys_mask=sysm)
+
+
 def _tokenize_topic_bytes(tb, roots: Sequence[int], *, max_levels: int,
-                          salt: int, batch: Optional[int],
+                          salt: int, batch: Optional[int], native: bool,
                           cache: Optional[TokenCache]) -> TokenizedTopics:
-    """The byte-plane leg of :func:`tokenize`: the vectorized numpy
-    tokenizer (``bytetok.tokenize_bytes``). With ``cache``, keys are the
-    raw byte slices."""
-    from . import bytetok
+    """The byte-plane leg of :func:`tokenize`. ``native=True`` feeds the
+    raw (data, offsets) pair straight to the C++ tokenizer, with no
+    re-encoding; ``native=False`` decodes the rows back into the Python
+    semantics reference. With ``cache``, keys are the raw byte slices."""
     n = len(tb)
     b = batch or n
     assert b >= n
@@ -1068,8 +1087,10 @@ def _tokenize_topic_bytes(tb, roots: Sequence[int], *, max_levels: int,
             width=max_levels + 1, salt=salt,
             miss_tokenize=lambda idx: _tokenize_topic_bytes(
                 tb.select(idx), [0] * len(idx), max_levels=max_levels,
-                salt=salt, batch=None, cache=None))
-    h1, h2, lengths, rootv, sysm = bytetok.tokenize_bytes(
-        tb, roots, max_levels=max_levels, salt=salt, batch=b)
-    return TokenizedTopics(tok_h1=h1, tok_h2=h2, lengths=lengths,
-                           roots=rootv, sys_mask=sysm)
+                salt=salt, batch=None, native=native, cache=None))
+    if not native:
+        return tokenize([tb.row_str(i) for i in range(n)], roots,
+                        max_levels=max_levels, salt=salt, batch=b,
+                        native=False)
+    return _tokenize_native(tb, roots, max_levels=max_levels, salt=salt,
+                            batch=b)

@@ -12,9 +12,10 @@
   single-block (≤128-byte) levels of the batch in one vectorized numpy
   pass, bit-exact with :func:`~bifromq_tpu_torch.models.automaton.level_hash`.
   Multi-block levels (>128 bytes) fall back to ``hashlib`` per level.
-- :func:`tokenize_bytes` is the host tokenizer of the byte plane: pure
-  numpy end-to-end. The device path (``ops/tokenize.py``) ships the same
-  bytes to the BLAKE2b CUDA kernel.
+- :func:`tokenize_bytes` tokenizes a byte batch in pure numpy, end to
+  end. The serving path's host tokenizer is the native one
+  (``models/native_tok.py``), and the device path (``ops/tokenize.py``)
+  ships the same bytes to the BLAKE2b CUDA kernel.
 
 Little-endian byte order is assumed for the vectorized word loads; the
 module guards and falls back to the per-level ``hashlib`` path on
@@ -328,8 +329,7 @@ def tokenize_bytes(tb: TopicBytes, roots: Sequence[int], *,
                    max_levels: int, salt: int,
                    batch: Optional[int] = None,
                    structure: Optional[TopicStructure] = None):
-    """Byte batch → padded probe arrays, pure numpy (the host leg of the
-    byte plane).
+    """Byte batch → padded probe arrays, pure numpy.
 
     Returns ``(tok_h1, tok_h2, lengths, roots, sys_mask)``: rows deeper
     than ``max_levels`` stay padding (length -1) for the caller's host

@@ -58,6 +58,7 @@ import torch
 from ..utils import topic as topic_util
 from ..utils.device import KernelLaunchError, resolve_device
 from ..utils.metrics import STAGES
+from ..utils.nativelib import NativeLibError
 from ..types import RouteMatcherType
 from .automaton import (CompiledTrie, GroupMatching, Matching, PatchableTrie,
                         PatchFallback, TokenCache, compile_tries, tokenize)
@@ -65,9 +66,10 @@ from .oracle import (PERSISTENT_SUB_BROKER_ID, UNCAPPED_FANOUT,
                      MatchedRoutes, Route, SubscriptionTrie)
 
 # what the serving legs raise to their caller instead of serving the host
-# oracle: a kernel that refused to launch and a wrapper's argument check
-# are faults of the program, and degrading around them would hide them
-_PROGRAM_FAULTS = (KernelLaunchError, ValueError)
+# oracle: a kernel that refused to launch, a native host helper that
+# failed to build or load and a wrapper's argument check are faults of
+# the program, and degrading around them would hide them
+_PROGRAM_FAULTS = (KernelLaunchError, NativeLibError, ValueError)
 
 
 def _pow2_batch(n: int, floor: int = 16) -> int:
@@ -206,14 +208,19 @@ class TorchMatcher:
         if self.device.type == "cuda":
             from ..ops.tokenize import BLAKE2B
             from ..utils.device import build_all
+            from ..ops.match import _expand_lib
             from .kernels import EXPAND, FUSED_WALK, WALK_PROBE_LENS
+            from .native_tok import load_lib
             if probe_len not in WALK_PROBE_LENS:
                 raise ValueError(f"the walk kernel has no bucket width "
                                  f"{probe_len}; have {WALK_PROBE_LENS}")
-            # the serving path's kernels load here, so a build or load
-            # failure raises before any batch is served and can never
-            # reach the device leg's degrade-to-oracle boundary
+            # the serving path's kernels and native host helpers load
+            # here, so a build or load failure raises before any batch is
+            # served and can never reach the device leg's
+            # degrade-to-oracle boundary
             build_all([BLAKE2B, FUSED_WALK, EXPAND])
+            load_lib()
+            _expand_lib()
         self.auto_compact = auto_compact
         self.compact_threshold = compact_threshold
         # authoritative state (exact guards; host fallback matches)
@@ -272,13 +279,16 @@ class TorchMatcher:
     def clone_empty(self) -> "TorchMatcher":
         """A fresh matcher with the same configuration on the same
         device — the dist coproc's reset-from-KV rebuild target."""
-        return TorchMatcher(max_levels=self.max_levels,
-                            k_states=self.k_states,
-                            probe_len=self.probe_len, device=self.device,
-                            auto_compact=self.auto_compact,
-                            compact_threshold=self.compact_threshold,
-                            max_intervals=self.max_intervals,
-                            match_cache=self.match_cache is not None)
+        return type(self)(**self._clone_kwargs())
+
+    def _clone_kwargs(self) -> dict:
+        """The constructor knobs ``clone_empty`` carries over."""
+        return dict(max_levels=self.max_levels, k_states=self.k_states,
+                    probe_len=self.probe_len, device=self.device,
+                    auto_compact=self.auto_compact,
+                    compact_threshold=self.compact_threshold,
+                    max_intervals=self.max_intervals,
+                    match_cache=self.match_cache is not None)
 
     @classmethod
     def from_tries(cls, tries: Dict[str, SubscriptionTrie],

@@ -7,7 +7,9 @@ interval-emitting walk (``walk_routes``, whose single-launch kernel is
 (``_expand_pairs``, whose kernel is ``models/kernels.kernel_expand``) and
 the per-peer bucketing (``_bucket_pairs``, plain PyTorch on the card too,
 as it is plain XLA in the reference). ``patch_device_trie`` writes a
-patched arena's dirty rows into the device tables.
+patched arena's dirty rows into the device tables. ``expand_intervals``
+is the host expansion of the rows the device buffer truncates or the
+escalation re-walks, through the native helper ``csrc/host/expand.cpp``.
 
 - B topics × K active NFA states advance one topic level per step.
 - Literal-edge lookup = ONE bucket-row gather of the single-choice hash
@@ -27,6 +29,7 @@ every product below 2^48.
 
 from __future__ import annotations
 
+import ctypes
 from dataclasses import dataclass
 from typing import Dict, List, Tuple
 
@@ -39,6 +42,7 @@ from ..models.automaton import (
 )
 from ..utils.device import upload
 from ..utils.env import env_int
+from ..utils.nativelib import CALLS, CSRC_HOST, compile_and_load
 
 # narrow count-walk table layout (see DeviceTrie.count_tab)
 CT_PLUS = 0
@@ -425,19 +429,69 @@ def _patch_device_trie(dev, pt, full, node_rows, edge_rows, ops, *,
                       route_tab=route_tab), stats
 
 
-def expand_intervals(ivl_start: np.ndarray, ivl_count: np.ndarray
-                     ) -> Tuple[np.ndarray, np.ndarray]:
-    """Host-side interval -> slot-id expansion (numpy).
+_EXPAND_SRC = CSRC_HOST / "expand.cpp"
+_INT32_MAX = int(np.iinfo(np.int32).max)
 
-    Returns (slots, row_offsets): row i's matched slot ids are
-    ``slots[row_offsets[i]:row_offsets[i+1]]``, int32.
-    """
-    ivl_start = np.asarray(ivl_start)
-    counts64 = np.maximum(np.asarray(ivl_count), 0).astype(np.int64)
+
+def _type_expand(lib) -> None:
+    # raw addresses, not POINTER objects: the mesh's truncated rows
+    # expand one row a call, where the per-call cost is the binding's
+    lib.expand_grid.restype = ctypes.c_int64
+    lib.expand_grid.argtypes = [ctypes.c_void_p, ctypes.c_int64,
+                                ctypes.c_int64, ctypes.c_void_p,
+                                ctypes.c_void_p]
+
+
+def _expand_lib():
+    return compile_and_load(_EXPAND_SRC, configure=_type_expand)
+
+
+def _row_offsets(counts64: np.ndarray) -> np.ndarray:
     row_counts = (counts64.sum(axis=1) if counts64.ndim == 2
                   else counts64.sum(keepdims=True))
-    row_offsets = np.concatenate([np.zeros(1, np.int64),
-                                  np.cumsum(row_counts)])
+    return np.concatenate([np.zeros(1, np.int64), np.cumsum(row_counts)])
+
+
+def expand_intervals(ivl_start: np.ndarray, ivl_count: np.ndarray
+                     ) -> Tuple[np.ndarray, np.ndarray]:
+    """Host-side interval -> slot-id expansion.
+
+    Returns (slots, row_offsets): row i's matched slot ids are
+    ``slots[row_offsets[i]:row_offsets[i+1]]``, int32. The C++ sequential
+    stores of ``csrc/host/expand.cpp`` serve every grid whose total fits
+    in int32 and is not 0; an empty grid, or one past int32, takes
+    :func:`expand_intervals_numpy` (a size rule, as in the reference). A
+    library that fails to build or load raises
+    :class:`~bifromq_tpu_torch.utils.nativelib.NativeLibError`.
+    """
+    ivl_start = np.asarray(ivl_start)
+    ivl_count = np.maximum(np.asarray(ivl_count), 0)
+    total = int(ivl_count.sum(dtype=np.int64))
+    if not 0 < total <= _INT32_MAX:
+        return expand_intervals_numpy(ivl_start, ivl_count)
+    lib = _expand_lib()
+    grid = np.empty(ivl_count.shape + (2,), np.int32)
+    grid[..., 0] = ivl_start
+    grid[..., 1] = ivl_count
+    rows = grid.shape[0] if grid.ndim == 3 else 1
+    out = np.empty(total, np.int32)
+    row_offsets = np.zeros(rows + 1, np.int64)
+    w = lib.expand_grid(grid.ctypes.data, rows, grid.size // (2 * rows),
+                        out.ctypes.data, row_offsets[1:].ctypes.data)
+    assert w == total, (w, total)   # counts/grid must agree
+    if rows > 1:        # one row (the mesh's truncated rows): [0, total]
+        np.cumsum(row_offsets, out=row_offsets)
+    CALLS["expand"] += 1
+    return out, row_offsets
+
+
+def expand_intervals_numpy(ivl_start: np.ndarray, ivl_count: np.ndarray
+                           ) -> Tuple[np.ndarray, np.ndarray]:
+    """The numpy leg of :func:`expand_intervals`, with the same results:
+    one vectorized ragged arange."""
+    ivl_start = np.asarray(ivl_start)
+    counts64 = np.maximum(np.asarray(ivl_count), 0).astype(np.int64)
+    row_offsets = _row_offsets(counts64)
     total = int(row_offsets[-1])
     flat_s = ivl_start.ravel().astype(np.int64)
     flat_c = counts64.ravel()

@@ -330,6 +330,15 @@ class TorchMeshMatcher(TorchMatcher):
                         tenant_id, SubscriptionTrie()).add(route)
             self._install_base(*self._compile_shadow())
 
+    def _clone_kwargs(self) -> dict:
+        """``clone_empty`` builds a fresh mesh matcher on the same mesh (so
+        the same device) with the same knobs. The reference also carries
+        its hot-tenant ``replicate=`` set over; hot-tenant replication is
+        not ported yet (ROADMAP A.11)."""
+        kw = super()._clone_kwargs()
+        del kw["device"]
+        return dict(kw, mesh=self.mesh)
+
     # ---------------- compile target: stacked shard tables -----------------
 
     def _compile_shadow(self):

@@ -5,7 +5,10 @@ Usage: ``python3 chip_smoke.py`` from the repository root, on a machine
 with an NVIDIA H100 and the CUDA toolkit. The script
 
 1. builds the four CUDA kernels from ``bifromq_tpu_torch/csrc`` (one
-   ``nvcc`` per source, started together) into ``build/kernels/``;
+   ``nvcc`` per source, started together) into ``build/kernels/`` and,
+   beside them, the two native host helpers from ``csrc/host/`` (the C++
+   topic tokenizer and interval expander, one ``g++`` each) into
+   ``build/host/``, printing each build's seconds;
 2. compiles BASELINE config 2 (one tenant, 1M Zipf wildcard
    subscriptions, ``workloads.config_wildcard(1_000_000, seed=0)``) and
    uploads its automaton to the card;
@@ -49,11 +52,17 @@ with an NVIDIA H100 and the CUDA toolkit. The script
    batch against the host oracle and the launches of each batch (the
    hash once, the walk once or twice, the expansion once); then times
    one more batch stage by stage (prepare, dispatch, fetch, host
-   expansion); then runs bench.py's config 8 ("churn") on the same
-   matcher: 256 subscribes, each patched in place and flushed to the
-   card, and 128 unsubscribes, with a 64-topic batch every 8 subscribes,
-   checking that no full compile ran, that the device tables equal the
-   host arenas and that the results equal the host oracle;
+   expansion), counting the native host helpers' calls in each stage
+   (stage 3 must re-expand its truncated rows natively); then
+   ("host-helpers") expands that batch's truncated rows' interval grids
+   with the native expander and with its numpy leg, and tokenizes its
+   4096 topics (as level lists) natively and with the Python loop,
+   timing both legs and asserting exact equality; then runs bench.py's
+   config 8 ("churn") on the same matcher: 256 subscribes, each patched
+   in place and flushed to the card, and 128 unsubscribes, with a
+   64-topic batch every 8 subscribes, checking that no full compile
+   ran, that the device tables equal the host arenas and that the
+   results equal the host oracle;
 5. serves a 100K-subscription tenant whose deliverer keys name 8 servers
    and checks the device's per-peer buckets against the host bucketing;
    that matcher keeps the match-result cache on, and the same batch
@@ -74,7 +83,8 @@ with an NVIDIA H100 and the CUDA toolkit. The script
    the expansion once for all blocks, the ring hop 4 times); checks 256
    rows of each batch against the host oracle, every block's peer
    buckets against the host bucketing and the ring-merged per-peer
-   totals; then times one more batch stage by stage, holds the walk's
+   totals; then times one more batch stage by stage (stage 0 must
+   tokenize the token cache's misses natively), holds the walk's
    one launch on that batch's own [8, 1024, W] probe grids against the
    plain walk block by block and times it beside 8 per-block launches
    of the same kernel, and times the expansion on the batch's own
@@ -287,6 +297,91 @@ def canon(m):
 def sync(torch, dev) -> None:
     if dev.type == "cuda":
         torch.cuda.synchronize()
+
+
+def start_host_builds():
+    """Start the g++ builds of the two native host helpers
+    (``csrc/host/tokenizer.cpp`` and ``expand.cpp``, into
+    ``build/host/``) on worker threads, so they run beside ``nvcc``;
+    returns a function that waits for them and gives each one's
+    seconds."""
+    from concurrent.futures import ThreadPoolExecutor
+    from bifromq_tpu_torch.models import native_tok
+    from bifromq_tpu_torch.ops import match as M
+
+    def timed(fn):
+        t0 = time.perf_counter()
+        fn()
+        return time.perf_counter() - t0
+    pool = ThreadPoolExecutor(2)
+    futs = {"tokenizer": pool.submit(timed, native_tok.load_lib),
+            "expand": pool.submit(timed, M._expand_lib)}
+
+    def wait():
+        try:
+            return {k: f.result() for k, f in futs.items()}
+        finally:
+            pool.shutdown()
+    return wait
+
+
+def native_calls():
+    from bifromq_tpu_torch.utils.nativelib import CALLS
+    return dict(CALLS)
+
+
+def calls_since(before):
+    return {k: v - before.get(k, 0) for k, v in native_calls().items()
+            if v - before.get(k, 0)}
+
+
+def host_helpers_phase(np, M, m, overflow, pairs, ct, workloads, root, smi,
+                       reps: int = 3):
+    """The native host helpers against their numpy and Python legs on
+    the config-2 serve batch: the truncated rows' fetched interval grids
+    (what stage 3 re-expands) and 4096 probe topics (level lists, the
+    host tokenizer's input), each timed ``reps`` times a leg, with
+    exact equality asserted."""
+    from bifromq_tpu_torch.models.automaton import tokenize
+    n = B_SERVE
+    need = np.nonzero(pairs.trunc[:n] & ~overflow[:n])[0]
+    g_s, g_c = m._fetch_escalation_grids(pairs.res)
+    gs, gc = g_s[need], g_c[need]
+
+    def timed(fn):
+        t0 = time.perf_counter()
+        out = fn()
+        return out, (time.perf_counter() - t0) * 1e3
+    nat_ms, npy_ms = [], []
+    for _ in range(reps):
+        (s1, o1), t = timed(lambda: M.expand_intervals(gs, gc))
+        nat_ms.append(t)
+        (s2, o2), t = timed(lambda: M.expand_intervals_numpy(gs, gc))
+        npy_ms.append(t)
+    if not (s1.dtype == s2.dtype and np.array_equal(s1, s2)
+            and np.array_equal(o1, o2)):
+        raise AssertionError("native expand_intervals differs from numpy")
+    topics = workloads.probe_topics(n, seed=200)
+    roots = [root] * n
+    kw = dict(max_levels=ct.max_levels, salt=ct.salt, batch=n)
+    tok_ms, py_ms = [], []
+    for _ in range(reps):
+        a, t = timed(lambda: tokenize(topics, roots, **kw))
+        tok_ms.append(t)
+        b, t = timed(lambda: tokenize(topics, roots, native=False, **kw))
+        py_ms.append(t)
+    for f in ("tok_h1", "tok_h2", "lengths", "roots", "sys_mask"):
+        x, y = getattr(a, f), getattr(b, f)
+        if not (x.dtype == y.dtype and np.array_equal(x, y)):
+            raise AssertionError(f"native tokenize differs in {f}")
+    out = {"phase": "host-helpers", "batch": n, "card": smi,
+           "expand": {"rows": int(need.size), "slots": int(s1.size),
+                      "native_ms": nat_ms, "numpy_ms": npy_ms,
+                      "equal": True},
+           "tokenize": {"topics": n, "native_ms": tok_ms,
+                        "python_ms": py_ms, "equal": True}}
+    print(json.dumps(out), flush=True)
+    return out
 
 
 def ring_phase(torch, K, dev):
@@ -912,23 +1007,30 @@ def mesh_phase(torch, dev, smi, n_tenants=MESH_TENANTS, total_subs=MESH_SUBS,
     print(json.dumps({"phase": "mesh-serve", "batch": batch, "card": smi,
                       "batches": served, "launches": launches}), flush=True)
 
-    stages = {}
+    stages = {"native_calls": {}}
 
     def staged(name, fn, *args):
         sync(torch, dev)
+        before = native_calls()
         t0 = time.perf_counter()
         out = fn(*args)
         sync(torch, dev)
         stages[name] = (time.perf_counter() - t0) * 1e3
+        stages["native_calls"][name] = calls_since(before)
         return out
 
+    misses = mm._tok_cache.misses
     fl = staged("dispatch_ms", mm._dispatch_prepared,
                 staged("prepare_ms", mm._prepare_probes, batches[-1]))
+    misses = mm._tok_cache.misses - misses
     overflow, pairs = staged("fetch_ms", mm._fetch_walk, fl.res)
     staged("expand_walk_ms", mm._expand_walk, fl, overflow, pairs,
            UNCAPPED_FANOUT, UNCAPPED_FANOUT)
     print(json.dumps({"phase": "mesh-stages", "batch": batch, "card": smi,
-                      **stages}), flush=True)
+                      "token_cache_misses": misses, **stages}), flush=True)
+    # stage 0 tokenizes the token cache's misses natively
+    if misses and not stages["native_calls"]["prepare_ms"].get("tokenize"):
+        raise AssertionError("mesh stage 0 tokenized nothing natively")
     k2_mesh(torch, K, M, mm, batches[-1], smi)
     # K3 on this batch's own [R·S, b, A] grids, one call for all blocks
     g = mm.n_replicas * mm.n_shards
@@ -2123,9 +2225,13 @@ def main() -> int:
                       "cuda": torch.version.cuda}), flush=True)
 
     t0 = time.perf_counter()
+    host_built = start_host_builds()
     D.build_all()
+    kernels_s = time.perf_counter() - t0
+    host_s = host_built()
     print(json.dumps({"phase": "build",
-                      "seconds": time.perf_counter() - t0}), flush=True)
+                      "seconds": time.perf_counter() - t0,
+                      "kernels_s": kernels_s, "host_s": host_s}), flush=True)
 
     t0 = time.perf_counter()
     tries = workloads.config_wildcard(N_SUBS, seed=0)
@@ -2238,14 +2344,16 @@ def main() -> int:
     # each bracketed by a device synchronize
     queries = [("tenant0", "/".join(t)) for t in
                workloads.probe_topics(B_SERVE, seed=200)]
-    stages = {}
+    stages = {"native_calls": {}}
 
     def staged(name, fn, *args):
         torch.cuda.synchronize()
+        before = native_calls()
         t0 = time.perf_counter()
         out = fn(*args)
         torch.cuda.synchronize()
         stages[name] = (time.perf_counter() - t0) * 1e3
+        stages["native_calls"][name] = calls_since(before)
         return out
 
     fl = staged("dispatch_ms", m._dispatch_prepared,
@@ -2255,6 +2363,12 @@ def main() -> int:
            UNCAPPED_FANOUT, UNCAPPED_FANOUT)
     print(json.dumps({"phase": "stages", "batch": B_SERVE, "card": smi,
                       **stages}), flush=True)
+    # stage 3 re-expands the truncated rows through the native expander
+    if pairs.trunc[:B_SERVE].any() \
+            and not stages["native_calls"]["expand_walk_ms"].get("expand"):
+        return fail("stage 3 expanded no truncated row natively")
+    import numpy as np
+    host_helpers_phase(np, M, m, overflow, pairs, ct, workloads, root, smi)
 
     # ---- churn: in-place patching under subscription churn (config 8) ----
     churn_phase(torch, M, D, workloads, m, smi)

@@ -411,6 +411,107 @@ class TestSplitMerge:
             await w.stop()
 
 
+def _mesh_matcher(mesh):
+    from bifromq_tpu_torch.parallel.sharded import TorchMeshMatcher
+    return TorchMeshMatcher(mesh=mesh, k_states=16, max_intervals=24,
+                            probe_len=8, compact_threshold=64,
+                            match_cache=False)
+
+
+def test_mesh_clone_empty_keeps_the_mesh_and_knobs():
+    from bifromq_tpu_torch.parallel.sharded import TorchMeshMatcher, \
+        make_mesh
+    mm = TorchMeshMatcher(mesh=make_mesh(2, 4, device="cpu"), max_levels=12,
+                          probe_len=8, k_states=16, max_intervals=24,
+                          auto_compact=False, compact_threshold=64,
+                          match_cache=False)
+    mm.add_route("T", mk_route("a/+"))
+    c = mm.clone_empty()
+    assert type(c) is TorchMeshMatcher and c is not mm
+    assert c.mesh is mm.mesh and c.device == mm.device
+    assert (c.n_replicas, c.n_shards) == (2, 4)
+    for knob in ("max_levels", "probe_len", "k_states", "max_intervals",
+                 "auto_compact", "compact_threshold"):
+        assert getattr(c, knob) == getattr(mm, knob), knob
+    assert c.match_cache is None and not c.tries
+    assert TorchMeshMatcher(mesh=mm.mesh).clone_empty().match_cache \
+        is not None
+
+
+def _oracle_rows(w, queries):
+    """Each query's rows from the ranges' host oracles
+    (``match_from_tries``), unioned in router order, uncapped."""
+    from bifromq_tpu_torch.kv import schema
+    from bifromq_tpu_torch.models.oracle import MatchedRoutes
+    out = []
+    for tenant, levels in queries:
+        pfx = schema.tenant_route_prefix(tenant)
+        merged = MatchedRoutes()
+        for rid in w.store.router.intersecting(pfx, schema.prefix_end(pfx)):
+            m = w.store.coprocs[rid].matcher.match_from_tries(
+                [(tenant, levels)])[0]
+            merged.normal.extend(m.normal)
+            for f, members in m.groups.items():
+                merged.groups.setdefault(f, []).extend(members)
+        out.append(norm(merged))
+    return out
+
+
+class TestMeshBackedSplit:
+    async def test_split_keeps_mesh_matchers_on_both_halves(self):
+        """A ``TorchMeshMatcher``-backed range split at its median key
+        rebuilds both halves through ``clone_empty`` on the same mesh,
+        and the two ranges serve the oracle's rows in order."""
+        from bifromq_tpu_torch.parallel.sharded import TorchMeshMatcher, \
+            make_mesh
+        mesh = make_mesh(2, 4, device="cpu")
+        w = dw.DistWorker(matcher_factory=lambda: _mesh_matcher(mesh))
+        single = port_worker()
+        try:
+            for x in (w, single):
+                await x.start()
+                for i in range(60):
+                    await x.add_route(f"T{i % 3}", mk_route(
+                        f"m/{i:02d}/+", f"r{i}", broker=i % 2))
+                for t in ("T0", "T1", "T2"):
+                    for j, (tf, broker) in enumerate(_spanning("m")):
+                        await x.add_route(t, mk_route(tf, f"w{j}",
+                                                      broker=broker))
+                (rid,) = list(x.store.ranges)
+                keys = [k for k, _ in x.store.ranges[rid].space.iterate()]
+                await x.store.split(rid, keys[len(keys) // 2])
+                assert len(x.store.ranges) == 2
+            matchers = [cp.matcher for cp in w.store.coprocs.values()]
+            assert all(type(m) is TorchMeshMatcher and m.mesh is mesh
+                       and m.k_states == 16 and m.max_intervals == 24
+                       and m.match_cache is None for m in matchers)
+            assert all(m.tries for m in matchers)
+            queries = [(f"T{i % 3}", ["m", f"{i:02d}", leaf])
+                       for i in (0, 1, 29, 30, 31, 59) for leaf in
+                       ("leaf", "x")] + [("T1", ["zz"]), ("T9", ["m"])]
+            # the replayed routes sit in the overlay, which serves the
+            # host oracle's rows in its own order
+            got = await rows(w, queries)
+            assert got == _oracle_rows(w, queries)
+            assert sum(len(r[0]) for r in got) > len(queries)
+            # compiled into the shard tables, the rows come off the mesh's
+            # walk in slot order: the single-table worker's order (which
+            # the reference-parity tests above hold), the oracle's set
+            for x in (w, single):
+                for cp in x.store.coprocs.values():
+                    cp.matcher.refresh()
+            assert all(m.compile_count and not m.overlay_size
+                       for m in matchers)
+            got = await rows(w, queries)
+            assert all(m.last_expanded is not None for m in matchers)
+            assert got == await rows(single, queries)
+            assert [(sorted(r[0]), r[1:]) for r in got] == \
+                [(sorted(r[0]), r[1:]) for r in _oracle_rows(w, queries)]
+        finally:
+            await w.stop()
+            await single.stop()
+
+
 def _ref_spaces(engine):
     return {name: (list(sp.iterate()), dict(sp._meta))
             for name, sp in engine.spaces().items()}

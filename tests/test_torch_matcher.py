@@ -159,6 +159,11 @@ mm = sharded.TorchMeshMatcher.from_tries(
 mq = [(f"tenant{i % 40}", t) for i, t in enumerate(topics)]
 assert [len(r.all_routes()) for r in mm.match_batch(mq)] == \
     [len(r.all_routes()) for r in mm.match_from_tries(mq)]
+# the native host helpers: the mesh's prepare tokenized through them
+import bifromq_tpu_torch.utils.nativelib, bifromq_tpu_torch.models.native_tok
+assert "bifromq_tpu_torch.models.native_tok" in sys.modules
+from bifromq_tpu_torch.ops.match import expand_intervals
+assert expand_intervals([[3, 9]], [[2, 1]])[0].tolist() == [3, 4, 9]
 # the batched walk over stacked tables and the hash's edge-case batch
 import numpy as np, torch
 from bifromq_tpu_torch.models import kernels
