@@ -1,6 +1,6 @@
 """Level-packed trie automaton: the host-side compiler for the device walk
-(copy of the compile, in-place patching and probe-tokenization parts of
-``bifromq_tpu/models/automaton.py``).
+(copy of the compile, in-place patching, probe-tokenization and
+filter-tokenization parts of ``bifromq_tpu/models/automaton.py``).
 
 The whole multi-tenant route table compiles into flat int32 tables that
 live in device memory, and batches of topics match with a fixed-shape NFA
@@ -63,6 +63,14 @@ NODE_SYS_SLOTS = 9
 NODE_HRCOUNT = 10
 NODE_HRSTART = 11
 NODE_COLS = 12
+
+# ext_tab column indices (the retained extras plane): the host patcher
+# (retained_plane/patched.py) writes these columns and the retained walk
+# (ops/retained.retained_walk_ext) reads them
+EXT_START = 0    # first extra_list index of the node's extras run
+EXT_COUNT = 1    # live entries in the run
+EXT_OWN = 2      # extra_list index of the node's OWN patch slot (-1 none)
+EXT_COLS = 4     # padded to a power of two (16-byte rows)
 
 _EMPTY = -1
 
@@ -406,7 +414,9 @@ def _build_edge_table(edges: List[Tuple[int, int, int, int]],
 #
 # Columns only the retained-mode walk reads (NODE_SUB_END,
 # NODE_SUB_RCOUNT, NODE_SYS_*, NODE_CSTART runs) are NOT maintained: the
-# match walk never reads them. Compaction (a full compile) runs when
+# match walk never reads them (``retained_plane/patched.py``'s
+# RetainedPatchableTrie maintains them for the retained walk, with an
+# extras plane for patch-era topics). Compaction (a full compile) runs when
 # dead + garbage slots cross PATCH_FRAG_RATIO of the arena.
 
 # the reference's BIFROMQ_PATCH_HEADROOM / _FRAG_RATIO / _FRAG_FLOOR
@@ -464,6 +474,7 @@ class PatchableTrie(CompiledTrie):
                          tenant_root=ct.tenant_root, salt=ct.salt,
                          probe_len=ct.probe_len, max_levels=ct.max_levels)
         self.n_live = n
+        self.child_used = ncl   # real CSR length under the pad
         self._init_runtime(ct.slot_kind, ct.matchings_arr)
 
     @classmethod
@@ -483,6 +494,9 @@ class PatchableTrie(CompiledTrie):
             tenant_root=dict(tenant_root), salt=salt, probe_len=probe_len,
             max_levels=max_levels)
         self.n_live = int(n_live)
+        # the given arenas carry their padding; a retained trie installs
+        # its own child_live, so the full length is the safe default
+        self.child_used = int(child_list.shape[0])
         s = len(self.matchings)
         marr = np.empty(max(s, 1), dtype=object)
         for i, m in enumerate(self.matchings):
@@ -1094,3 +1108,137 @@ def _tokenize_topic_bytes(tb, roots: Sequence[int], *, max_levels: int,
                         native=False)
     return _tokenize_native(tb, roots, max_levels=max_levels, salt=salt,
                             batch=b)
+
+
+# ------------------------ filter-probe tokenization -------------------------
+# (retained-message lookup: wildcard FILTERS probe a trie of concrete topics)
+
+KIND_LIT = 0
+KIND_PLUS = 1
+KIND_HASH = 2
+
+
+@dataclass
+class TokenizedFilters:
+    """Fixed-shape filter probe batch; padding rows have length == -1."""
+    tok_h1: np.ndarray    # [B, max_levels + 1] int32
+    tok_h2: np.ndarray    # [B, max_levels + 1] int32
+    tok_kind: np.ndarray  # [B, max_levels + 1] int32 (KIND_*)
+    lengths: np.ndarray   # [B] int32
+    roots: np.ndarray     # [B] int32
+
+    @property
+    def batch(self) -> int:
+        return self.tok_h1.shape[0]
+
+
+class LevelEmbedsDelimiter(ValueError):
+    """A filter level contains the topic delimiter, so the joined byte
+    row would split into other levels than the filter has."""
+
+
+def tokenize_filters(filters: Sequence[Sequence[str]], roots: Sequence[int],
+                     *, max_levels: int, salt: int,
+                     batch: Optional[int] = None,
+                     vectorized: bool = True) -> TokenizedFilters:
+    """Hash filter levels ('+'/'#' become kind codes) into a probe batch.
+
+    The vectorized leg packs the joined filters into one
+    :class:`~bifromq_tpu_torch.models.bytetok.TopicBytes` batch, scans
+    the level boundaries and hashes every literal level in one numpy
+    BLAKE2b pass. A batch with a level that embeds the delimiter cannot
+    be scanned that way; it, and ``vectorized=False``, run the per-row
+    Python loop, the semantics reference. Any other failure of the
+    vectorized leg propagates."""
+    n = len(filters)
+    b = batch or n
+    assert b >= n
+    if vectorized and n:
+        try:
+            return _tokenize_filters_vec(filters, roots,
+                                         max_levels=max_levels, salt=salt,
+                                         batch=b)
+        except LevelEmbedsDelimiter:
+            pass
+    return _tokenize_filters_py(filters, roots, max_levels=max_levels,
+                                salt=salt, batch=b)
+
+
+def _tokenize_filters_vec(filters, roots, *, max_levels: int, salt: int,
+                          batch: int) -> TokenizedFilters:
+    """Byte-plane filter tokenization, row-identical to the loop."""
+    from . import bytetok
+    n = len(filters)
+    width = max_levels + 1
+    tb = bytetok.TopicBytes.from_topics(
+        [topic_util.DELIMITER.join(f) for f in filters])
+    st = bytetok.topic_structure(tb)
+    # a joined empty filter ([] -> "") scans as one empty level; the
+    # loop records length 0 with no levels — align below
+    n_ref = np.fromiter((len(f) for f in filters), dtype=np.int64, count=n)
+    empty_rows = n_ref == 0
+    if not np.array_equal(st.n_levels[~empty_rows], n_ref[~empty_rows]):
+        raise LevelEmbedsDelimiter("level contains the topic delimiter")
+    ok = (st.n_levels <= max_levels) & ~empty_rows
+    lengths = np.full(batch, _EMPTY, dtype=np.int32)
+    rootv = np.full(batch, _EMPTY, dtype=np.int32)
+    roots_a = np.asarray(list(roots), dtype=np.int32)
+    lengths[:n][ok] = st.n_levels[ok]
+    rootv[:n][ok] = roots_a[ok]
+    lengths[:n][empty_rows] = 0
+    rootv[:n][empty_rows] = roots_a[empty_rows]
+    tok_h1 = np.zeros((batch, width), dtype=np.int32)
+    tok_h2 = np.zeros((batch, width), dtype=np.int32)
+    tok_kind = np.zeros((batch, width), dtype=np.int32)
+    sel = ok[st.lvl_row]
+    if sel.any():
+        kind_lvl = level_kinds(tb.data, st)
+        lit = sel & (kind_lvl == KIND_LIT)
+        if lit.any():
+            h1, h2 = bytetok.hash_levels(tb.data, st.lvl_start[lit],
+                                         st.lvl_len[lit], salt)
+            tok_h1[st.lvl_row[lit], st.lvl_idx[lit]] = h1
+            tok_h2[st.lvl_row[lit], st.lvl_idx[lit]] = h2
+        tok_kind[st.lvl_row[sel], st.lvl_idx[sel]] = kind_lvl[sel]
+    return TokenizedFilters(tok_h1=tok_h1, tok_h2=tok_h2, tok_kind=tok_kind,
+                            lengths=lengths, roots=rootv)
+
+
+def level_kinds(data: np.ndarray, st) -> np.ndarray:
+    """KIND_* of every level of a scanned byte batch: the wildcard levels
+    are exactly the single-byte '+' / '#' levels."""
+    one = st.lvl_len == 1
+    b0 = np.zeros(st.lvl_len.shape[0], dtype=np.uint8)
+    oidx = np.nonzero(one)[0]
+    b0[oidx] = data[st.lvl_start[oidx]]
+    kind = np.zeros(st.lvl_len.shape[0], dtype=np.int32)
+    kind[one & (b0 == ord(topic_util.SINGLE_WILDCARD))] = KIND_PLUS
+    kind[one & (b0 == ord(topic_util.MULTI_WILDCARD))] = KIND_HASH
+    return kind
+
+
+def _tokenize_filters_py(filters, roots, *, max_levels: int, salt: int,
+                         batch: int) -> TokenizedFilters:
+    """The per-row loop (the semantics reference)."""
+    width = max_levels + 1
+    tok_h1 = np.zeros((batch, width), dtype=np.int32)
+    tok_h2 = np.zeros((batch, width), dtype=np.int32)
+    tok_kind = np.zeros((batch, width), dtype=np.int32)
+    lengths = np.full(batch, _EMPTY, dtype=np.int32)
+    rootv = np.full(batch, _EMPTY, dtype=np.int32)
+    for i, (levels, root) in enumerate(zip(filters, roots)):
+        if len(levels) > max_levels:
+            continue  # padding; the caller serves the row on the host
+        lengths[i] = len(levels)
+        rootv[i] = root
+        for j, level in enumerate(levels):
+            if level == topic_util.SINGLE_WILDCARD:
+                tok_kind[i, j] = KIND_PLUS
+            elif level == topic_util.MULTI_WILDCARD:
+                tok_kind[i, j] = KIND_HASH
+            else:
+                h1, h2 = level_hash(level, salt)
+                tok_h1[i, j] = h1
+                tok_h2[i, j] = h2
+    return TokenizedFilters(tok_h1=tok_h1, tok_h2=tok_h2, tok_kind=tok_kind,
+                            lengths=lengths, roots=rootv)

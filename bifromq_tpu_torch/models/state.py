@@ -14,6 +14,11 @@ state and returns the port's ``PatchableTrie`` and its ``DeviceTrie``,
 so the port can serve and keep patching the very arenas the reference
 built.
 
+``retained_index_from_numpy`` takes a reference ``RetainedIndex``'s
+topics and its ``RetainedPatchableTrie`` arenas (the extras plane
+included) and returns the port's ``RetainedIndex`` serving and patching
+the very same arenas.
+
 ``kv_engine_from_items`` rebuilds a reference KV engine's spaces (route
 records and range metadata) as the port's ``InMemKVEngine``, so a port
 ``DistWorker`` opened on it takes the reset-from-KV path over the very
@@ -22,7 +27,7 @@ route table the reference wrote.
 
 from __future__ import annotations
 
-from typing import Iterable, Mapping, Tuple
+from typing import Iterable, Mapping, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -103,6 +108,72 @@ def patchable_from_numpy(*, matchings, tenant_root, n_live: int, salt: int,
         salt=salt, probe_len=probe_len, max_levels=max_levels,
         dead_slots=dead_slots, garbage_slots=garbage_slots)
     return pt, DeviceTrie.from_compiled(pt, device=dev)
+
+
+RETAINED_ARENAS = ("node_tab", "edge_tab", "child_list", "ext_tab",
+                   "extra_list", "slot_kind")
+RETAINED_EXTRAS = ("extra_live", "extra_garbage", "child_live",
+                   "child_garbage", "child_cap", "ext_cap", "own_slot")
+
+
+def retained_index_from_numpy(*, topics: Mapping[str, Iterable[str]],
+                              receivers: Sequence[str],
+                              tenant_root: Mapping[str, int], salt: int,
+                              n_live: int, probe_len: int, max_levels: int,
+                              extras: Mapping[str, object],
+                              dead_slots: int = 0, garbage_slots: int = 0,
+                              k_states: int = 32, device=None,
+                              **arenas: np.ndarray):
+    """Carry a reference ``RetainedIndex`` across.
+
+    ``topics``: each tenant's retained topic strings (the authority), in
+    a pre-order walk of its trie, so that each node keeps its child
+    order (the host matcher lists the rows it serves in that order);
+    ``receivers``: the slot → topic array, in slot order; the arenas of
+    ``RETAINED_ARENAS`` as numpy (int32, ``slot_kind`` int8), capacity
+    padding, patch-era rows and tombstones included; ``extras``: the
+    extras plane's scalars and run tables (``RETAINED_EXTRAS``). Returns
+    the port's ``RetainedIndex`` on ``device`` (``None`` means the card),
+    installed through ``from_arenas`` with no compile, so it serves the
+    same scans and its next patches land on the same rows."""
+    from ..retained_plane.patched import RetainedPatchableTrie
+    from ..utils import topic as topic_util
+    from .oracle import SubscriptionTrie
+    from .retained import RetainedIndex, _topic_route
+    if sorted(arenas) != sorted(RETAINED_ARENAS):
+        raise KeyError(f"expected the arenas {RETAINED_ARENAS}, got "
+                       f"{sorted(arenas)}")
+    if sorted(extras) != sorted(RETAINED_EXTRAS):
+        raise KeyError(f"expected the extras {RETAINED_EXTRAS}, got "
+                       f"{sorted(extras)}")
+    for k in RETAINED_ARENAS:
+        want = np.int8 if k == "slot_kind" else np.int32
+        if np.asarray(arenas[k]).dtype != want:
+            raise ValueError(f"{k}: expected {np.dtype(want).name}, got "
+                             f"{np.asarray(arenas[k]).dtype}")
+    receivers = list(receivers)
+    if len(arenas["slot_kind"]) != len(receivers):
+        raise ValueError(f"slot_kind has {len(arenas['slot_kind'])} slots, "
+                         f"receivers {len(receivers)}")
+    rt = RetainedPatchableTrie.from_arenas(
+        node_tab=np.array(arenas["node_tab"]), n_live=n_live,
+        edge_tab=np.array(arenas["edge_tab"]),
+        child_list=np.array(arenas["child_list"]),
+        matchings=[_topic_route(topic_util.parse(t), t) for t in receivers],
+        slot_kind=np.array(arenas["slot_kind"]), tenant_root=tenant_root,
+        salt=salt, probe_len=probe_len, max_levels=max_levels,
+        dead_slots=dead_slots, garbage_slots=garbage_slots)
+    rt.install_retained_extras(ext_tab=np.array(arenas["ext_tab"]),
+                               extra_list=np.array(arenas["extra_list"]),
+                               **extras)
+    idx = RetainedIndex(max_levels=max_levels, k_states=k_states,
+                        probe_len=probe_len, device=device)
+    for tenant, ts in topics.items():
+        trie = idx.tries[tenant] = SubscriptionTrie()
+        for t in ts:
+            trie.add(_topic_route(topic_util.parse(t), t))
+    idx._install(rt, receivers)
+    return idx
 
 
 def kv_engine_from_items(

@@ -27,6 +27,7 @@ import torch
 
 from ..models import bytetok
 from ..models.automaton import TokenizedTopics
+from ..utils import topic as topic_util
 from ..utils.device import CudaKernel, check_cuda, ptr, stream_of, upload
 from ..utils.env import env_int
 
@@ -205,6 +206,37 @@ class DeviceTokenized:
                         batch=batch)
 
 
+def _hashable_rows(tb, st, max_levels: int) -> np.ndarray:
+    """Rows the kernel can hash: at most ``max_levels`` levels, at most
+    ``tok_max_bytes()`` bytes, no level over one BLAKE2b block."""
+    return ((st.n_levels <= max_levels)
+            & (tb.byte_lens.astype(np.int64) <= tok_max_bytes())
+            & (st.max_lvl_len <= _LEVEL_BLOCK))
+
+
+def _pack_lanes(tb, st, ok: np.ndarray, batch: int, width: int):
+    """The ``ok`` rows' bytes in a fixed ``[batch, tok_max_bytes()]``
+    block and their level boundaries (relative to the row) in ``[batch,
+    width]`` grids; other rows stay zero. Returns ``(rows, starts, lens,
+    sel)``, ``sel`` marking the levels of the packed rows."""
+    n = len(tb)
+    byte_lens = tb.byte_lens.astype(np.int64)
+    rows = np.zeros((batch, tok_max_bytes()), dtype=np.uint8)
+    row_of = np.repeat(np.arange(n, dtype=np.int64), byte_lens)
+    pos = bytetok._intra_row_positions(byte_lens)
+    keep = ok[row_of]
+    rows[row_of[keep], pos[keep]] = tb.data[keep]
+    starts = np.zeros((batch, width), dtype=np.int32)
+    lens_g = np.zeros((batch, width), dtype=np.int32)
+    sel = ok[st.lvl_row]
+    row_off = tb.offsets.astype(np.int64)[:-1]
+    r_sel, i_sel = st.lvl_row[sel], st.lvl_idx[sel]
+    starts[r_sel, i_sel] = \
+        (st.lvl_start[sel] - row_off[r_sel]).astype(np.int32)
+    lens_g[r_sel, i_sel] = st.lvl_len[sel].astype(np.int32)
+    return rows, starts, lens_g, sel
+
+
 def pack_topic_bytes(tb, roots: Sequence[int], *, max_levels: int,
                      batch: int):
     """Host half of :func:`device_tokenize`: pack + structure in
@@ -215,32 +247,15 @@ def pack_topic_bytes(tb, roots: Sequence[int], *, max_levels: int,
     n = len(tb)
     b = batch
     assert b >= n
-    width = max_levels + 1
-    max_bytes = tok_max_bytes()
     st = bytetok.topic_structure(tb)
-    byte_lens = tb.byte_lens.astype(np.int64)
-    ok = ((st.n_levels <= max_levels) & (byte_lens <= max_bytes)
-          & (st.max_lvl_len <= _LEVEL_BLOCK))
+    ok = _hashable_rows(tb, st, max_levels)
     lengths = np.full(b, _EMPTY, dtype=np.int32)
     rootv = np.full(b, _EMPTY, dtype=np.int32)
     sys_mask = np.zeros(b, dtype=bool)
     lengths[:n][ok] = st.n_levels[ok]
     rootv[:n][ok] = np.fromiter(roots, dtype=np.int32, count=n)[ok]
     sys_mask[:n][ok] = st.sys_mask[ok]
-    # pack supported rows into the fixed [B, MB] block + boundary grids
-    rows = np.zeros((b, max_bytes), dtype=np.uint8)
-    row_of = np.repeat(np.arange(n, dtype=np.int64), byte_lens)
-    pos = bytetok._intra_row_positions(byte_lens)
-    keep = ok[row_of]
-    rows[row_of[keep], pos[keep]] = tb.data[keep]
-    starts = np.zeros((b, width), dtype=np.int32)
-    lens_g = np.zeros((b, width), dtype=np.int32)
-    sel = ok[st.lvl_row]
-    row_off = tb.offsets.astype(np.int64)[:-1]
-    starts[st.lvl_row[sel], st.lvl_idx[sel]] = \
-        (st.lvl_start[sel] - row_off[st.lvl_row[sel]]).astype(np.int32)
-    lens_g[st.lvl_row[sel], st.lvl_idx[sel]] = \
-        st.lvl_len[sel].astype(np.int32)
+    rows, starts, lens_g, _ = _pack_lanes(tb, st, ok, b, max_levels + 1)
     return lengths, rootv, sys_mask, rows, starts, lens_g
 
 
@@ -263,4 +278,88 @@ def device_tokenize(tb, roots: Sequence[int], *, max_levels: int,
     mirror = DeviceTokenized(lengths=lengths, roots=rootv,
                              sys_mask=sys_mask, tb=tb, salt=salt,
                              max_levels=max_levels)
+    return mirror, probes
+
+
+class DeviceTokenizedFilters:
+    """Host mirror of a device-tokenized FILTER probe batch: the lengths,
+    roots and kind grid the scan needs on the host, while the literal
+    lanes' hashes live only on the device (the split of
+    :class:`DeviceTokenized`)."""
+
+    __slots__ = ("lengths", "roots", "kinds")
+
+    def __init__(self, lengths, roots, kinds):
+        self.lengths = lengths
+        self.roots = roots
+        self.kinds = kinds
+
+    @property
+    def batch(self) -> int:
+        return self.lengths.shape[0]
+
+
+def pack_filter_bytes(filters, roots: Sequence[int], *, max_levels: int,
+                      batch: int):
+    """Host half of :func:`device_tokenize_filters`: pack, scan and
+    classify in vectorized numpy. Returns ``(lengths, roots, kinds, rows,
+    starts, lens)``; rows the kernel cannot hash are padding."""
+    from ..models.automaton import level_kinds
+    n = len(filters)
+    b = batch
+    assert b >= n
+    tb = bytetok.TopicBytes.from_topics(
+        [topic_util.DELIMITER.join(f) for f in filters])
+    st = bytetok.topic_structure(tb)
+    n_ref = np.fromiter((len(f) for f in filters), dtype=np.int64,
+                        count=n)
+    empty_rows = n_ref == 0
+    resplit = (st.n_levels != n_ref) & ~empty_rows
+    ok = _hashable_rows(tb, st, max_levels) & ~empty_rows & ~resplit
+    lengths = np.full(b, _EMPTY, dtype=np.int32)
+    rootv = np.full(b, _EMPTY, dtype=np.int32)
+    roots_a = np.fromiter(roots, dtype=np.int32, count=n)
+    lengths[:n][ok] = st.n_levels[ok]
+    rootv[:n][ok] = roots_a[ok]
+    lengths[:n][empty_rows] = 0
+    rootv[:n][empty_rows] = roots_a[empty_rows]
+    rows, starts, lens_g, sel = _pack_lanes(tb, st, ok, b, max_levels + 1)
+    kinds = np.zeros((b, max_levels + 1), dtype=np.int32)
+    kinds[st.lvl_row[sel], st.lvl_idx[sel]] = level_kinds(tb.data, st)[sel]
+    return lengths, rootv, kinds, rows, starts, lens_g
+
+
+def device_tokenize_filters(filters, roots: Sequence[int], *,
+                            max_levels: int, salt: int, batch=None, device):
+    """Retained FILTER tokenization with the hashing on the device.
+
+    The host packs the joined filter bytes, scans the level boundaries
+    and classifies the single-byte ``'+'`` / ``'#'`` lanes; the BLAKE2b
+    kernel (K1) hashes every lane, and the wildcard lanes are masked to
+    ``h1 == h2 == 0`` after it (only ``KIND_LIT`` lanes carry hashes, as
+    in ``TokenizedFilters``). Rows the kernel cannot hash — deeper than
+    ``max_levels``, longer than ``tok_max_bytes()``, a level over one
+    BLAKE2b block, or a level that embeds the delimiter (the joined row
+    would split differently) — are padding (length ``-1``) and the
+    caller serves them on the host. An empty filter has length 0 and no
+    lanes. Returns ``(host_mirror, FilterProbes)``."""
+    from ..models.automaton import KIND_LIT
+    from .retained import FilterProbes
+    b = batch or len(filters)
+    lengths, rootv, kinds, rows, starts, lens_g = pack_filter_bytes(
+        filters, roots, max_levels=max_levels, batch=b)
+    # one staged copy for the kernel's inputs and the probes' grids
+    d_rows, d_starts, d_lens, d_lengths, d_h0, d_kinds, d_roots = upload(
+        [rows, starts, lens_g, lengths, _h0(salt), kinds, rootv], device)
+    h1, h2 = blake2b_levels(d_rows, d_starts, d_lens, d_lengths.view(b, 1),
+                            d_h0)
+    # inactive lanes are already zero (the kernel's active mask) and
+    # carry kind 0 == KIND_LIT, so this strips the wildcard lanes only
+    lit = d_kinds == KIND_LIT
+    probes = FilterProbes(tok_h1=torch.where(lit, h1, 0),
+                          tok_h2=torch.where(lit, h2, 0), tok_kind=d_kinds,
+                          lengths=d_lengths, roots=d_roots,
+                          max_len=int(lengths.max(initial=-1)))
+    mirror = DeviceTokenizedFilters(lengths=lengths, roots=rootv,
+                                    kinds=kinds)
     return mirror, probes

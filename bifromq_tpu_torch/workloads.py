@@ -1,10 +1,13 @@
-"""Workload generators (copy of the config-2 and config-5 parts of
-``bifromq_tpu/workloads.py``).
+"""Workload generators (copy of the config-2, config-4 and config-5 parts
+of ``bifromq_tpu/workloads.py``).
 
 - ``config_wildcard``: BASELINE config 2, one tenant with wildcard-heavy
   Zipf subscriptions (1M by default).
 - ``config_multi_tenant``: BASELINE config 5, 10K tenants with Zipf
   sizes summing to 10M subscriptions, for the tenant-sharded mesh.
+- ``config_retained``: BASELINE config 4, one tenant's concrete retained
+  topics (5M by default), probed by ``probe_filters``' wildcard
+  SUBSCRIBE filters.
 - ``probe_topics``: concrete PUBLISH topics drawn from the same Zipf tree.
 - ``diverse_topics``: topic strings with realistic shapes (deep paths,
   multi-byte UTF-8, empty levels, ``$SYS`` roots).
@@ -104,6 +107,35 @@ def config_multi_tenant(n_tenants: int = 10_000, total_subs: int = 10_000_000,
                            deliverer_key=deliverer_key(t, i)))
         out[f"tenant{t}"] = trie
     return out
+
+
+def config_retained(n_topics: int = 5_000_000, *, seed: int = 0,
+                    n_level_names: int = 1000, max_depth: int = 6
+                    ) -> Dict[str, List[List[str]]]:
+    """Config 4: the retained-message store, unique concrete topics of
+    one tenant (level lists), which wildcard FILTERS probe."""
+    rng = random.Random(seed)
+    names, weights = _zipf_levels(n_level_names)
+    seen = set()
+    topics: List[List[str]] = []
+    for i in range(n_topics):
+        levels = gen_topic_levels(rng, names, weights, max_depth=max_depth)
+        if tuple(levels) in seen:
+            # disambiguate with a device-id tail (per-device leaves under
+            # shared prefixes); may exceed max_depth by one level
+            levels = levels + [f"d{i}"]
+        seen.add(tuple(levels))
+        topics.append(levels)
+    return {"tenant0": topics}
+
+
+def probe_filters(n: int, *, seed: int = 2, n_level_names: int = 1000,
+                  max_depth: int = 6) -> List[List[str]]:
+    """Wildcard SUBSCRIBE filters probing the retained store (config 4)."""
+    rng = random.Random(seed)
+    names, weights = _zipf_levels(n_level_names)
+    return [gen_filter_levels(rng, names, weights, max_depth=max_depth)
+            for _ in range(n)]
 
 
 def probe_topics(n: int, *, seed: int = 1, n_level_names: int = 1000,

@@ -1,8 +1,10 @@
 #!/usr/bin/env python3
 """Drive bifromq_tpu_torch's serving paths on one CUDA card.
 
-Usage: ``python3 chip_smoke.py`` from the repository root, on a machine
-with an NVIDIA H100 and the CUDA toolkit. The script
+Usage: ``python3 chip_smoke.py [--mesh-subs N]`` from the repository
+root, on a machine with an NVIDIA H100 and the CUDA toolkit
+(``--mesh-subs`` sets config 5's subscriptions on the mesh path, 1M by
+default; it measures what a deeper mesh phase costs). The script
 
 1. builds the four CUDA kernels from ``bifromq_tpu_torch/csrc`` (one
    ``nvcc`` per source, started together) into ``build/kernels/`` and,
@@ -76,7 +78,7 @@ with an NVIDIA H100 and the CUDA toolkit. The script
    back-to-back hops at ``[2, 4, 2]`` into the parts of the launch path,
    beside the longer path it replaced and ``torch.roll``;
 7. compiles BASELINE config 5 (``config_multi_tenant``: 10K Zipf-sized
-   tenants, cut from 10M to 2M subscriptions) onto a ``make_mesh(2, 4)``
+   tenants, cut from 10M to 1M subscriptions) onto a ``make_mesh(2, 4)``
    grid and serves 3 ``match_batch`` calls of 4096 config-5 queries
    through ``TorchMeshMatcher`` — the mesh path — with the launch counts
    reset just before and read just after (per batch: the walk once and
@@ -121,7 +123,21 @@ with an NVIDIA H100 and the CUDA toolkit. The script
    range at its median key and 512 publishes checked in full against the
    union of the two ranges' rows (two ``TorchMatcher`` on the card). No
    publish may be degraded, and every matcher must drain;
-11. ("device-chaos") on a 400-subscription matcher: a dispatch error,
+11. ("retained", run right after step 1, while the heap is small)
+   builds BASELINE config 4 (``config_retained``: one
+   tenant's retained topics, cut from 5M to 1M) into
+   ``RetainedIndex(max_levels=18, k_states=16)`` on the card and serves
+   4 batches of 4096 ``probe_filters`` through ``match_batch`` with
+   ``limit=10``, then unlimited, with the launch counts reset just before
+   and read just after (the hash on every batch, no other kernel): every
+   limit-10 row has the host oracle's length, only matching topics and
+   no duplicate, 64 seeded rows unlimited pass the same checks and equal
+   the oracle's (the rows the host matcher served are counted); K1 is held
+   against its plain version on the phase's filters; one batch is timed
+   stage by stage; then 2,048 set / clear mutations are patched in place
+   and flushed one by one, with a checked scan after every 256, no full
+   compile, and the device tables equal to the host arenas at the end;
+12. ("device-chaos") on a 400-subscription matcher: a dispatch error,
    a hang under a 0.25 s watchdog deadline with the batch held on the
    card by a sleep kernel (the quarantine keeps the result until its
    CUDA event completes, then a sweep empties it) and a forced-open
@@ -156,7 +172,7 @@ N_SERVE_BATCHES = 3
 ORACLE_SAMPLE = 256
 MESH = (2, 4)            # (replicas, shards), as the reference's tests
 MESH_TENANTS = 10_000    # BASELINE config 5
-MESH_SUBS = 2_000_000    # config 5 has 10M; cut to 2M (PERF.md section 4)
+MESH_SUBS = 1_000_000    # config 5 has 10M; cut to 1M (PERF.md section 4)
 MESH_PEER_TENANTS = 1_000   # config 5's shape, keys naming 8 servers
 MESH_PEER_SUBS = 100_000
 RING_N = (2, 10, 1 << 20)  # n_peers + 2 for n_peers 0 and 8; bandwidth
@@ -2068,6 +2084,333 @@ def dist_phase(torch, D, workloads, smi):
     return out
 
 
+RET_TOPICS = 1_000_000   # BASELINE config 4 has 5M; cut to 1M (PERF.md section 4)
+RET_BATCH = 4096         # bench.py config 4's batch
+RET_BATCHES = 4
+RET_LIMIT = 10           # RetainMessageMatchLimit's default
+RET_EXACT_ROWS = 64
+RET_MUTATIONS = 2048
+RET_SCAN_EVERY = 256
+RET_CHURN_BATCH = 512
+RET_ORACLE_PROCS = 4
+
+# the oracle worker's own copy of the config-4 trie (set in the worker)
+_RET_TRIE = None
+
+
+def _oracle_init(n_topics: int) -> None:
+    """Build config 4's trie in a spawned oracle worker, from the seed,
+    in the order the phase adds the topics to its index."""
+    global _RET_TRIE
+    from bifromq_tpu_torch import workloads
+    from bifromq_tpu_torch.models.oracle import SubscriptionTrie
+    from bifromq_tpu_torch.models.retained import _topic_route
+    _RET_TRIE = SubscriptionTrie()
+    for levels in workloads.config_retained(n_topics, seed=0)["tenant0"]:
+        _RET_TRIE.add(_topic_route(levels, "/".join(levels)))
+
+
+def _oracle_limited(filters):
+    from bifromq_tpu_torch.models.retained import match_filter_host
+    return [len(match_filter_host(_RET_TRIE, f, limit=RET_LIMIT))
+            for f in filters]
+
+
+def filter_matches(topic: str, filt) -> bool:
+    """The MQTT rule, written here independently of the package: '+'
+    one level, '#' the rest (the parent included), and no root-level
+    wildcard reaches a '$' topic [MQTT-4.7.2-1]."""
+    lv = topic.split("/")
+    if filt and filt[0] in ("+", "#") and lv[0].startswith("$"):
+        return False
+    for i, f in enumerate(filt):
+        if f == "#":
+            return True
+        if i >= len(lv) or (f != "+" and f != lv[i]):
+            return False
+    return len(lv) == len(filt)
+
+
+def check_limited(rows, filters, oracle_lens, what: str) -> None:
+    """Limit-10 rows: the oracle's length, topics that match, no
+    duplicates."""
+    for i, (got, f, n) in enumerate(zip(rows, filters, oracle_lens)):
+        if len(got) != n or len(set(got)) != len(got) \
+                or not all(filter_matches(tp, f) for tp in got):
+            raise AssertionError(f"{what} row {i} {f}: {len(got)} topics "
+                                 f"{got[:4]}, oracle {n}")
+
+
+def retained_phase(torch, D, T, workloads, smi, dev):
+    """BASELINE config 4 on the card: ``config_retained(1_000_000,
+    seed=0)`` (cut from 5M) in a ``RetainedIndex(max_levels=18,
+    k_states=16)``, probed with ``probe_filters(seed=2)``.
+
+    - Serve 4 batches of 4096 filters with ``limit=10``, then the same 4
+      unlimited, with the launch counts reset just before and read just
+      after: K1 must have launched on each batch, K2, K3 and K4 never.
+      Every limit-10 row has the oracle's length (``match_filter_host``
+      with ``limit=10``, in spawned workers), only topics that match the
+      filter by the MQTT rule and no duplicate; 64 seeded rows unlimited
+      pass the same checks and equal the oracle's, sorted, and are served
+      once more as one batch to count the rows the host matcher served
+      (``RetainedIndex.host_rows``). K1's filter hashes equal its plain
+      version on one batch, and the probes equal the host tokenizer's.
+    - Time one limit-10 batch stage by stage.
+    - Apply 2,048 seeded set / clear mutations, each patched and flushed
+      to the card, with a 512-filter limit-10 scan after every 256 (64
+      sampled rows checked as above) and the churned topics' own filters
+      served unlimited and equal to the oracle. No full compile may run,
+      and at the end the five device tables equal the host arenas.
+    Returns the phase's summary."""
+    import multiprocessing
+    from concurrent.futures import ProcessPoolExecutor
+    filters = workloads.probe_filters(RET_BATCH * RET_BATCHES, seed=2)
+    # the limit-10 oracle runs in spawned workers, each on its own trie,
+    # while this process builds the index; a worker that dies breaks the
+    # pool, and its futures raise
+    pool = ProcessPoolExecutor(
+        RET_ORACLE_PROCS, mp_context=multiprocessing.get_context("spawn"),
+        initializer=_oracle_init, initargs=(RET_TOPICS,))
+    try:
+        pending = [pool.submit(_oracle_limited, filters[i:i + 256])
+                   for i in range(0, len(filters), 256)]
+        out = _retained_serve(torch, D, T, workloads, smi, dev, filters,
+                              pending)
+    finally:
+        pool.shutdown(wait=True, cancel_futures=True)
+    return out
+
+
+def _retained_serve(torch, D, T, workloads, smi, dev, filters, pending):
+    """The body of :func:`retained_phase`; ``pending`` holds the futures
+    of the limit-10 oracle's lengths of ``filters``, in order."""
+    import random
+
+    import numpy as np
+
+    from bifromq_tpu_torch.models.automaton import tokenize_filters
+    from bifromq_tpu_torch.models.retained import (RetainedIndex,
+                                                   match_filter_host)
+    from bifromq_tpu_torch.ops import retained as R
+    from bifromq_tpu_torch.utils import nativelib
+    t_phase = time.perf_counter()
+    t0 = time.perf_counter()
+    topics = workloads.config_retained(RET_TOPICS, seed=0)["tenant0"]
+    gen_s = time.perf_counter() - t0
+    idx = RetainedIndex(max_levels=18, k_states=16, device=dev)
+    t0 = time.perf_counter()
+    for levels in topics:
+        idx.add_topic("tenant0", levels, "/".join(levels))
+    add_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    ct = idx.refresh()
+    torch.cuda.synchronize()
+    compile_s = time.perf_counter() - t0
+    tabs = idx._device_tables
+    build = {"topics": RET_TOPICS, "generate_s": gen_s, "add_s": add_s,
+             "compile_s": compile_s, "node_rows": int(ct.n_live),
+             "node_capacity": int(ct.node_tab.shape[0]),
+             "device_table_bytes": {
+                 k: getattr(tabs, k).numel() * 4
+                 for k in R.RETAINED_TABLES}}
+    print(json.dumps({"phase": "retained-build", "card": smi, **build}),
+          flush=True)
+
+    batches = [[("tenant0", f) for f in
+                filters[i * RET_BATCH:(i + 1) * RET_BATCH]]
+               for i in range(RET_BATCHES)]
+    idx.match_batch(batches[0], limit=RET_LIMIT)      # warm
+    idx.match_batch(batches[0][:64])
+    rng = random.Random(5)
+    exact_rows = sorted(rng.sample(range(RET_BATCH * RET_BATCHES),
+                                   RET_EXACT_ROWS))
+    D.reset_launches()
+    native0 = nativelib.CALLS["retained_walk"]
+    host0 = idx.host_rows
+    limited, unlimited = [], {}
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for q in batches:
+        limited.extend(idx.match_batch(q, limit=RET_LIMIT))
+    lim_s = time.perf_counter() - t0
+    host_lim = idx.host_rows - host0
+    host0 = idx.host_rows
+    matched = 0
+    t0 = time.perf_counter()
+    for b, q in enumerate(batches):
+        res = idx.match_batch(q)
+        matched += sum(len(r) for r in res)
+        for i in exact_rows:
+            if i // RET_BATCH == b:
+                unlimited[i] = res[i % RET_BATCH]
+        del res
+    unlim_s = time.perf_counter() - t0
+    host_unlim = idx.host_rows - host0
+    launches = {k: v.launches for k, v in D.KERNELS.items()}
+    native_calls = nativelib.CALLS["retained_walk"] - native0
+    if launches["blake2b_levels"] != 2 * RET_BATCHES or any(
+            n for k, n in launches.items() if k != "blake2b_levels"):
+        raise AssertionError(f"the retained path launched {launches}")
+    matched_lim = sum(len(r) for r in limited)
+
+    # ---- the checks: every limit-10 row, 64 rows unlimited
+    t0 = time.perf_counter()
+    oracle_lens = [n for f in pending for n in f.result(timeout=600)]
+    oracle_wait_s = time.perf_counter() - t0
+    check_limited(limited, filters, oracle_lens, "limit-10")
+    trie = idx.tries["tenant0"]
+    t0 = time.perf_counter()
+    wants = [sorted(match_filter_host(trie, filters[i])) for i in exact_rows]
+    oracle_exact_s = time.perf_counter() - t0
+    # the unlimited rows by the MQTT rule too: the host matcher also serves
+    # the rows the native walker cannot, so it cannot be their only judge
+    check_limited([unlimited[i] for i in exact_rows],
+                  [filters[i] for i in exact_rows],
+                  [len(w) for w in wants], "unlimited")
+    for i, want in zip(exact_rows, wants):
+        if sorted(unlimited[i]) != want:
+            raise AssertionError(f"unlimited row {i} {filters[i]}: "
+                                 f"{len(unlimited[i])} topics, oracle "
+                                 f"{len(want)}")
+    # the same rows again as one batch: how many the host matcher served
+    host0 = idx.host_rows
+    again = idx.match_batch([("tenant0", filters[i]) for i in exact_rows])
+    host_exact = idx.host_rows - host0
+    if [sorted(g) for g in again] != wants:
+        raise AssertionError("the unlimited rows served as one batch differ "
+                             "from the oracle")
+    del again
+
+    # ---- K1 on the phase's own filters, and the probes it made
+    lengths, rootv, kinds, rows_b, starts, lens = T.pack_filter_bytes(
+        filters[:RET_BATCH], [ct.root_of("tenant0")] * RET_BATCH,
+        max_levels=ct.max_levels, batch=RET_BATCH)
+    args = [torch.from_numpy(a).to(dev) for a in
+            (rows_b, starts, lens, lengths.reshape(RET_BATCH, 1))]
+    h0 = T.h0_tensor(ct.salt, dev)
+    k1_err = max_abs_err(torch, T.blake2b_levels(*args, h0),
+                         T._hash_lanes(*args, h0))
+    prep = idx.prepare_scan(batches[0])
+    host = tokenize_filters(filters[:RET_BATCH],
+                            [ct.root_of("tenant0")] * RET_BATCH,
+                            max_levels=ct.max_levels, salt=ct.salt)
+    sup = prep.lengths >= 0
+    for k in ("tok_h1", "tok_h2", "tok_kind"):
+        if not np.array_equal(getattr(prep.probes, k).cpu().numpy()[sup],
+                              getattr(host, k)[sup]):
+            raise AssertionError(f"device filter probes' {k} differ from "
+                                 f"the host tokenizer's")
+    if k1_err:
+        raise AssertionError(f"K1 differs from _hash_lanes on the "
+                             f"retained filters: {k1_err}")
+
+    # ---- one limit-10 batch, stage by stage
+    stages = {}
+
+    def staged(name, fn, *a, **kw):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn(*a, **kw)
+        torch.cuda.synchronize()
+        stages[name] = (time.perf_counter() - t0) * 1e3
+        return out
+
+    prep = staged("prepare_ms", idx.prepare_scan, batches[1])
+    prep, res = staged("dispatch_ms", idx.dispatch_scan, prep)
+    fetched = staged("fetch_ms", idx.fetch_scan, res)
+    staged("expand_ms", idx.expand_scan, prep, fetched, limit=RET_LIMIT)
+    overflow_rows = int(fetched[2][:RET_BATCH].sum())
+
+    # ---- mutations: set / clear, patched in place and flushed
+    mrng = random.Random(7)
+    names = [f"l{i}" for i in range(1000)]
+    rebuilds0, compactions0 = idx.rebuilds, idx.compactions
+    flushes0 = idx.patch_flushes
+    patch_s, scans, churned, cleared = [], [], [], []
+    for m in range(RET_MUTATIONS):
+        roll = mrng.random()
+        if roll < 0.5:
+            levels = [mrng.choice(names[:50])
+                      for _ in range(mrng.randint(1, 4))] + [f"m{m}"]
+            op = (idx.add_topic, levels)
+        elif roll < 0.6 and cleared:
+            op = (idx.add_topic, cleared.pop())       # resurrect
+        else:
+            op = (idx.remove_topic, topics[mrng.randrange(len(topics))])
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        changed = op[0]("tenant0", op[1], "/".join(op[1]))
+        idx.flush_device()
+        torch.cuda.synchronize()
+        patch_s.append(time.perf_counter() - t0)
+        if changed:
+            churned.append(op[1])
+            if op[0] == idx.remove_topic:
+                cleared.append(op[1])
+        if (m + 1) % RET_SCAN_EVERY == 0:
+            k = (m + 1) // RET_SCAN_EVERY
+            fs = workloads.probe_filters(RET_CHURN_BATCH, seed=10 + k)
+            t0 = time.perf_counter()
+            got = idx.match_batch([("tenant0", f) for f in fs],
+                                  limit=RET_LIMIT)
+            scan_ms = (time.perf_counter() - t0) * 1e3
+            sample = list(range(0, RET_CHURN_BATCH,
+                                RET_CHURN_BATCH // RET_EXACT_ROWS))
+            trie = idx.tries["tenant0"]
+            check_limited([got[i] for i in sample], [fs[i] for i in sample],
+                          [len(match_filter_host(trie, fs[i],
+                                                 limit=RET_LIMIT))
+                           for i in sample], f"churn scan {k}")
+            own = [lv for lv in churned[-32:]]
+            own = own + [lv[:-1] + ["#"] for lv in own if len(lv) > 1]
+            got = idx.match_batch([("tenant0", f) for f in own])
+            bad = [f for f, g in zip(own, got)
+                   if sorted(g) != sorted(match_filter_host(trie, f))]
+            if bad:
+                raise AssertionError(f"churn scan {k}: {bad[:4]} differ "
+                                     f"from the oracle")
+            scans.append({"scan_ms": scan_ms, "own_filters": len(own)})
+    base = idx._compiled
+    host = R.RetainedDeviceTables.host_arrays(base)
+    unequal = [k for k, a in zip(R.RETAINED_TABLES, host)
+               if not (tuple(getattr(idx._device_tables, k).shape) == a.shape
+                       and (getattr(idx._device_tables, k).cpu().numpy()
+                            == a).all())]
+    out = {
+        "phase": "retained", "card": smi, **build,
+        "batch": RET_BATCH, "batches": RET_BATCHES, "limit": RET_LIMIT,
+        "filters_per_s_limit10": RET_BATCH * RET_BATCHES / lim_s,
+        "matched_per_s_limit10": matched_lim / lim_s,
+        "filters_per_s_unlimited": RET_BATCH * RET_BATCHES / unlim_s,
+        "matched_per_s_unlimited": matched / unlim_s,
+        "matched_unlimited": matched, "native_walker_calls": native_calls,
+        "overflow_rows_one_batch": overflow_rows, "stages": stages,
+        "oracle_limit10_wait_s": oracle_wait_s, "oracle_limit10_rows":
+            len(filters), "oracle_exact_s": oracle_exact_s,
+        "oracle_exact_rows": len(exact_rows),
+        "host_rows": {"limit10": host_lim, "unlimited": host_unlim,
+                      "exact_rows": host_exact},
+        "k1_max_abs_err": k1_err,
+        "launches": launches,
+        "mutations": RET_MUTATIONS, "patch_apply_ms": _pcts(patch_s),
+        "churn_scans": scans,
+        "rebuilds": idx.rebuilds - rebuilds0,
+        "compactions": idx.compactions - compactions0,
+        "patch_flushes": idx.patch_flushes - flushes0,
+        "patch": base.patch_stats(), "tables_unequal": unequal,
+        "seconds": time.perf_counter() - t_phase}
+    print(json.dumps(out), flush=True)
+    if idx.rebuilds != rebuilds0 or idx.compactions != compactions0:
+        raise AssertionError("the retained mutations ran a full compile")
+    if idx.patch_flushes == flushes0:
+        raise AssertionError("no retained patch reached the card")
+    if unequal:
+        raise AssertionError(f"retained device tables differ from the host "
+                             f"arenas: {unequal}")
+    return out
+
+
 def device_chaos_phase(torch, D, workloads, smi, dev):
     """The device leg's failure boundary on the card, on a small matcher
     (``config_wildcard(400)``): a dispatch ``error`` rule, a ``hang``
@@ -2196,7 +2539,18 @@ def device_chaos_phase(torch, D, workloads, smi, dev):
     return out
 
 
-def main() -> int:
+def parse_args(argv):
+    import argparse
+    ap = argparse.ArgumentParser(description="Drive bifromq_tpu_torch's "
+                                 "serving paths on one CUDA card.")
+    ap.add_argument("--mesh-subs", type=int, default=MESH_SUBS,
+                    help="config 5's subscriptions on the mesh path "
+                    "(default %(default)s, cut from 10M)")
+    return ap.parse_args(argv)
+
+
+def main(argv=None) -> int:
+    args = parse_args(argv)
     try:
         import torch
     except ImportError:
@@ -2233,6 +2587,10 @@ def main() -> int:
                       "seconds": time.perf_counter() - t0,
                       "kernels_s": kernels_s, "host_s": host_s}), flush=True)
 
+    # ---- retained: BASELINE config 4 through RetainedIndex, first, on a
+    # small heap (its index is freed when the phase returns)
+    ret = retained_phase(torch, D, T, workloads, smi, dev)
+
     t0 = time.perf_counter()
     tries = workloads.config_wildcard(N_SUBS, seed=0)
     gen_s = time.perf_counter() - t0
@@ -2252,7 +2610,8 @@ def main() -> int:
     # ---- K1: BLAKE2b level hashing ----------------------------------------
     k1_err, rows["blake2b_levels"] = k1_phase(torch, T, workloads, TopicBytes,
                                               ct, root, dev, smi)
-    k1_err = max(k1_err, k1_wide_phase(torch, T, TopicBytes, dev, smi))
+    k1_err = max(k1_err, k1_wide_phase(torch, T, TopicBytes, dev, smi),
+                 ret["k1_max_abs_err"])
 
     # ---- K2: fused interval walk ------------------------------------------
     topics = ["/".join(t) for t in workloads.probe_topics(B_CHECK, seed=1)]
@@ -2412,7 +2771,8 @@ def main() -> int:
 
     rows["ring_hop"], k4_err = ring_phase(torch, K, dev)
     k4_host_split(torch, K, D, dev, smi)
-    mesh_launches, _ = mesh_phase(torch, dev, smi)
+    mesh_launches, _ = mesh_phase(torch, dev, smi,
+                                  total_subs=args.mesh_subs)
     mesh_peer_phase(torch, dev)
 
     # ---- pipeline: the async serving leg (bench.py config 7) --------------
@@ -2458,7 +2818,8 @@ def main() -> int:
                         "single": single_launches[name],
                         "mesh": mesh_launches[name],
                         "pipelined": pipe["pipelined"]["launches"][name],
-                        "dist": dist["publish"]["launches"][name]},
+                        "dist": dist["publish"]["launches"][name],
+                        "retained": ret["launches"][name]},
                     "max_abs_err": err, "ms": r["ms"],
                     "plain_ms": r["plain_ms"], "bound_ms": bound_ms(r),
                     "bound_by": bound_by(r),

@@ -240,6 +240,16 @@ async def publish():
         await svc.stop()
 pr = asyncio.run(publish())
 assert pr.ok and pr.fanout == 1 and Sink.got == ["r1"], (pr, Sink.got)
+# the retained index: one scan (K1's plain version, the retained walk,
+# one row escalated to the native walker)
+import bifromq_tpu_torch.ops.retained, bifromq_tpu_torch.retained_plane
+import bifromq_tpu_torch.models.native_retained
+from bifromq_tpu_torch.models.retained import RetainedIndex
+idx = RetainedIndex(device="cpu", k_states=2)
+for t in ("a/b", "a/c", "a/d", "$SYS/x", "b"):
+    idx.add_topic("T", t.split("/"), t)
+assert idx.match_batch([("T", ["a", "+"]), ("T", ["#"]), ("T", ["b"])]) \
+    == [["a/b", "a/c", "a/d"], ["a/b", "a/c", "a/d", "b"], ["b"]]
 assert "jax" not in sys.modules, "jax imported"
 bad = [k for k in sys.modules
        if k == "bifromq_tpu" or k.startswith("bifromq_tpu.")]
