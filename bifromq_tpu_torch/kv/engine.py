@@ -120,44 +120,69 @@ class IKVEngine:
 # --------------------------- in-memory engine -------------------------------
 
 class _SortedBytesMap:
-    """Sorted byte-key map: dict + bisect-maintained key list.
+    """Sorted byte-key map: a dict plus a key list put in order lazily.
 
-    Writes are O(n) worst case on inserts of new keys; reads and range scans
-    are O(log n + k). Fine for tests and WAL duty; the native engine covers
-    write-heavy data spaces.
+    Unlike the reference's bisect-maintained list, a new key appends to
+    the list, so a range that grows by a million keys in random order
+    pays no O(n) insert per key. The list is put in order when a delete
+    or a scan needs it: a short unsorted tail is insorted key by key, a
+    long one sorted with the rest in one Timsort. Reads are O(1), deletes
+    O(n) memmoves and range scans O(log n + k) once ordered.
     """
+
+    _INSORT_TAIL = 32   # at 1M keys, 32 insorts cost less than one sort
 
     def __init__(self) -> None:
         self._keys: List[bytes] = []
         self._map: Dict[bytes, bytes] = {}
+        self._n_sorted = 0      # _keys[:_n_sorted] is in order
+
+    def _order(self) -> List[bytes]:
+        keys, n = self._keys, self._n_sorted
+        if n < len(keys):
+            if len(keys) - n <= self._INSORT_TAIL:
+                tail = keys[n:]
+                del keys[n:]
+                for k in tail:
+                    bisect.insort(keys, k)
+            else:
+                keys.sort()
+            self._n_sorted = len(keys)
+        return keys
 
     def put(self, key: bytes, value: bytes) -> None:
         if key not in self._map:
-            bisect.insort(self._keys, key)
+            keys = self._keys
+            if self._n_sorted == len(keys) and (not keys or key > keys[-1]):
+                self._n_sorted += 1
+            keys.append(key)
         self._map[key] = value
 
     def delete(self, key: bytes) -> None:
         if key in self._map:
             del self._map[key]
-            i = bisect.bisect_left(self._keys, key)
-            del self._keys[i]
+            keys = self._order()
+            del keys[bisect.bisect_left(keys, key)]
+            self._n_sorted -= 1
 
     def delete_range(self, start: bytes, end: bytes) -> None:
-        lo = bisect.bisect_left(self._keys, start)
-        hi = bisect.bisect_left(self._keys, end)
-        for k in self._keys[lo:hi]:
+        keys = self._order()
+        lo = bisect.bisect_left(keys, start)
+        hi = bisect.bisect_left(keys, end)
+        for k in keys[lo:hi]:
             del self._map[k]
-        del self._keys[lo:hi]
+        del keys[lo:hi]
+        self._n_sorted = len(keys)
 
     def get(self, key: bytes) -> Optional[bytes]:
         return self._map.get(key)
 
     def scan(self, start: Optional[bytes], end: Optional[bytes],
              reverse: bool = False) -> Iterator[Tuple[bytes, bytes]]:
-        lo = 0 if start is None else bisect.bisect_left(self._keys, start)
-        hi = len(self._keys) if end is None else bisect.bisect_left(
-            self._keys, end)
-        keys = self._keys[lo:hi]
+        keys = self._order()
+        lo = 0 if start is None else bisect.bisect_left(keys, start)
+        hi = len(keys) if end is None else bisect.bisect_left(keys, end)
+        keys = keys[lo:hi]
         if reverse:
             keys = reversed(keys)
         for k in keys:
@@ -165,8 +190,9 @@ class _SortedBytesMap:
 
     def copy(self) -> "_SortedBytesMap":
         c = _SortedBytesMap()
-        c._keys = list(self._keys)
+        c._keys = list(self._order())
         c._map = dict(self._map)
+        c._n_sorted = len(c._keys)
         return c
 
     def __len__(self) -> int:

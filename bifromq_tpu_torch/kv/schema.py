@@ -1,6 +1,6 @@
-"""KV key/value codecs (copy of the route half of
-``bifromq_tpu/kv/schema.py``; the inbox, retain and message codecs come
-with their slices, ROADMAP A.5b and A.8).
+"""KV key/value codecs (copy of the route, message and retain parts of
+``bifromq_tpu/kv/schema.py``; the inbox codecs come with their slice,
+ROADMAP A.5b).
 
 Order-preserving, tenant-scoped binary encodings with the same structural
 properties as the reference schemas, byte-identical to the JAX package's:
@@ -9,6 +9,7 @@ properties as the reference schemas, byte-identical to the JAX package's:
   one record per (tenant, filter, flag, group?, receiver); keys sort so a
   tenant's whole route table is one contiguous range (prefix scan rebuilds
   the matcher), and escaped filter levels sort in trie DFS order.
+- retained messages (≈ retain-store schema): (tenant, topic) records.
 
 Values are framed with a tiny struct codec (no pickle: stable + safe).
 """
@@ -19,7 +20,7 @@ import struct
 from typing import Tuple
 
 from ..models.oracle import Route
-from ..types import RouteMatcher, RouteMatcherType
+from ..types import Message, QoS, RouteMatcher, RouteMatcherType
 from ..utils import topic as topic_util
 
 # key-space tags (first byte)
@@ -107,6 +108,62 @@ def decode_route(tenant_id: str, key: bytes, value: bytes) -> Route:
                              mqtt_topic_filter=mqtt_filter, group=group),
         broker_id=broker_id, receiver_id=receiver_b.decode(),
         deliverer_key=deliverer_b.decode(), incarnation=incarnation)
+
+
+# ------------------------------- messages -----------------------------------
+
+def encode_message(msg: Message) -> bytes:
+    props = msg.user_properties or ()
+    out = struct.pack(">QBQI?", msg.message_id, int(msg.pub_qos),
+                      msg.timestamp, msg.expiry_seconds, msg.is_retain)
+    out += _len16(msg.payload if isinstance(msg.payload, bytes)
+                  else bytes(msg.payload))
+    out += struct.pack(">H", len(props))
+    for k, v in props:
+        out += _len16(k.encode()) + _len16(v.encode())
+    out += _len16(msg.content_type.encode())
+    out += _len16(msg.response_topic.encode())
+    out += _len16(msg.correlation_data)
+    out += struct.pack(">B", msg.payload_format_indicator)
+    return out
+
+
+def decode_message(buf: bytes) -> Message:
+    message_id, qos, ts, expiry, retain = struct.unpack_from(">QBQI?", buf, 0)
+    pos = struct.calcsize(">QBQI?")
+    payload, pos = _read_len16(buf, pos)
+    n_props = struct.unpack_from(">H", buf, pos)[0]
+    pos += 2
+    props = []
+    for _ in range(n_props):
+        k, pos = _read_len16(buf, pos)
+        v, pos = _read_len16(buf, pos)
+        props.append((k.decode(), v.decode()))
+    content_type, pos = _read_len16(buf, pos)
+    response_topic, pos = _read_len16(buf, pos)
+    correlation, pos = _read_len16(buf, pos)
+    pfi = buf[pos]
+    return Message(message_id=message_id, pub_qos=QoS(qos), payload=payload,
+                   timestamp=ts, expiry_seconds=expiry, is_retain=retain,
+                   user_properties=tuple(props),
+                   content_type=content_type.decode(),
+                   response_topic=response_topic.decode(),
+                   correlation_data=correlation, payload_format_indicator=pfi)
+
+
+# ------------------------------- retain -------------------------------------
+
+def retain_key(tenant_id: str, topic: str) -> bytes:
+    return TAG_RETAIN + _len16(tenant_id.encode()) + topic.encode()
+
+
+def split_retain_key(key: bytes) -> tuple:
+    tenant_b, pos = _read_len16(key, 1)
+    return tenant_b.decode(), key[pos:].decode()
+
+
+def retain_prefix(tenant_id: str) -> bytes:
+    return TAG_RETAIN + _len16(tenant_id.encode())
 
 
 def prefix_end(prefix: bytes) -> bytes:

@@ -83,21 +83,25 @@ class KVRangeStore:
 
     def __init__(self, node_id: str, transport, engine: IKVEngine,
                  coproc_factory: Callable[[str], IKVRangeCoProc], *,
-                 member_nodes: Optional[List[str]] = None) -> None:
+                 member_nodes: Optional[List[str]] = None,
+                 space_prefix: str = "") -> None:
         self.node_id = node_id
         self.transport = transport
         self.engine = engine
         self.coproc_factory = coproc_factory
         self.member_nodes = member_nodes or [node_id]
-        # the reference's durable raft store, its engine-sharing space
-        # prefix, its legacy-layout migration and replica placement
-        # (open(bootstrap=False)) arrive with raft/store.py (ROADMAP A.5b);
-        # the port's ranges are volatile, in one layout
+        # namespaces this store's engine spaces so several KVRangeStores
+        # (dist routes, inbox, retain) can share one engine
+        self.space_prefix = space_prefix
+        # the reference's durable raft store, its legacy-layout migration
+        # (legacy_space) and replica placement (open(bootstrap=False))
+        # arrive with raft/store.py (ROADMAP A.5c); the port's ranges are
+        # volatile
         self.ranges: Dict[str, ReplicatedKVRange] = {}
         self.coprocs: Dict[str, IKVRangeCoProc] = {}
         self.boundaries: Dict[str, Boundary] = {}
         self.router = KVRangeRouter()
-        self._meta = engine.create_space("store_meta")
+        self._meta = engine.create_space(f"{space_prefix}store_meta")
         self._split_seq = 0
 
     # ---------------- lifecycle -------------------------------------------
@@ -133,7 +137,8 @@ class KVRangeStore:
                     voters: Optional[List[str]] = None,
                     learners: Optional[List[str]] = None
                     ) -> ReplicatedKVRange:
-        space = self.engine.create_space(f"range_{range_id}")
+        space = self.engine.create_space(
+            f"{self.space_prefix}range_{range_id}")
         coproc = self.coproc_factory(range_id)
         member_id = f"{self.node_id}:{range_id}"
         if voters is None:
@@ -210,7 +215,8 @@ class KVRangeStore:
         sibling_id = self._sibling_id(range_id, split_key)
         if sibling_id in self.ranges:
             return  # replayed entry (restart); already split
-        sib_space = self.engine.create_space(f"range_{sibling_id}")
+        sib_space = self.engine.create_space(
+            f"{self.space_prefix}range_{sibling_id}")
         # move [split_key, end) into the sibling space
         w = sib_space.writer()
         moved = 0

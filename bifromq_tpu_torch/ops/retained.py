@@ -111,9 +111,19 @@ class RetainedScanResult:
     overflow: torch.Tensor
 
     def host_fetch(self) -> HostFetch:
-        """Pinned host copies of the three leaves and one CUDA event."""
-        return HostFetch({"start": self.start, "count": self.count,
-                          "overflow": self.overflow})
+        """This result's one :class:`HostFetch`: pinned host copies of
+        the three leaves and one CUDA event."""
+        fetch = self.__dict__.get("_host_fetch")
+        if fetch is None:
+            fetch = self.__dict__["_host_fetch"] = HostFetch(
+                {"start": self.start, "count": self.count,
+                 "overflow": self.overflow})
+        return fetch
+
+    def ready_leaves(self):
+        """The leaves a scan plane's dispatch ring kicks and polls (and
+        its quarantine holds): the fetch's one readiness handle."""
+        return (self.host_fetch(),)
 
 
 def retained_walk_ext(tables: RetainedDeviceTables, probes: FilterProbes,

@@ -4,9 +4,9 @@
 The reference streams its pooled event types through IEventCollector
 (eventcollector/EventType.java). Here events are lightweight
 dataclasses; this copy carries the members the dist plane reports
-(route mutations, dispatch, fan-out and delivery), under the reference's
-names and values. The session, inbox and retain families come with their
-slices (ROADMAP A.5b, A.8).
+(route mutations, dispatch, fan-out and delivery) and the retain service
+reports, under the reference's names and values. The session and inbox
+families come with their slice (ROADMAP A.5b).
 """
 
 from __future__ import annotations
@@ -34,6 +34,10 @@ class EventType(enum.Enum):
     # dist success (≈ Disted) + byte-capped persistent fanout
     DISTED = "disted"
     PERSISTENT_FANOUT_BYTES_THROTTLED = "persistent_fanout_bytes_throttled"
+    # retain family
+    RETAIN_MSG_CLEARED = "retain_msg_cleared"
+    MSG_RETAINED = "msg_retained"
+    MSG_RETAINED_ERROR = "msg_retained_error"
 
 
 @dataclass

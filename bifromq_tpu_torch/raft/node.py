@@ -52,7 +52,8 @@ class LogEntry:
 class Snapshot:
     last_index: int
     last_term: int
-    data: bytes
+    # None: a deferred cut, materialized when a peer needs it
+    data: Optional[bytes]
     voters: Tuple[str, ...]
     voters_old: Optional[Tuple[str, ...]] = None
     learners: Tuple[str, ...] = ()
@@ -228,6 +229,8 @@ class RaftNode:
         # leader-side dump sessions: peer -> {id, snap, offset, inflight}
         self._dump_sessions: Dict[str, dict] = {}
         self._dump_session_seq = 0
+        # the snapshot dump sessions ship while self.snap is a deferred cut
+        self._shipped_snap: Optional[Snapshot] = None
         self._dump_budget = 0       # governor tokens (bytes), refilled per tick
         # follower-side restore session: {id, leader, meta, chunks: {seq: b}}
         self._restore_session: Optional[dict] = None
@@ -597,8 +600,8 @@ class RaftNode:
         nxt = self._next_index.get(peer, self.last_index + 1)
         if nxt <= self.snap.last_index:
             # ship the materialized snapshot via a chunked dump session
-            # (its data was captured at compaction time and is consistent
-            # with its last_index label)
+            # (its data is serialized at its cut, so it is consistent with
+            # its last_index label)
             self._start_dump_session(peer)
             return
         prev_index = nxt - 1
@@ -743,6 +746,12 @@ class RaftNode:
     # ---------------- snapshots --------------------------------------------
 
     def _maybe_compact(self) -> None:
+        """Drop the applied log past the threshold. Unlike the reference,
+        the cut defers its data: serializing the whole state machine every
+        ``SNAPSHOT_THRESHOLD`` entries costs a range that grows by one key
+        an entry time quadratic in its size (a million retained topics
+        would take hours), so the state is serialized only when a peer
+        needs it (:meth:`_materialized_snap`)."""
         if len(self.log) <= self.SNAPSHOT_THRESHOLD:
             return
         # the snapshot MUST be cut exactly at last_applied: snapshot_cb()
@@ -756,25 +765,44 @@ class RaftNode:
             return
         # slice with the OLD snapshot offset before replacing it
         new_log = self._entries_from(cut + 1)
-        self.snap = Snapshot(last_index=cut, last_term=term,
-                             data=self.snapshot_cb(),
-                             voters=tuple(sorted(self.voters)),
-                             voters_old=(tuple(sorted(self.voters_old))
-                                         if self.voters_old is not None
-                                         else None),
-                             learners=tuple(sorted(self.learners)))
+        self.snap = Snapshot(last_index=cut, last_term=term, data=None,
+                             **self._snap_config())
         self.log = new_log
+
+    def _snap_config(self) -> dict:
+        return dict(voters=tuple(sorted(self.voters)),
+                    voters_old=(tuple(sorted(self.voters_old))
+                                if self.voters_old is not None else None),
+                    learners=tuple(sorted(self.learners)))
+
+    def _materialized_snap(self) -> Snapshot:
+        """The snapshot a dump session ships. A deferred cut stays the
+        log's offset, as the reference's cut would be; the shipped
+        snapshot is cut at last_applied, where its data is serialized
+        now, and the log keeps every entry past the deferred cut, so a
+        peer only a few entries behind still catches up from the log. It
+        is reused until a later cut passes it."""
+        if self.snap.data is not None:
+            return self.snap
+        shipped = self._shipped_snap
+        if shipped is None or shipped.last_index < self.snap.last_index:
+            cut = self.last_applied
+            shipped = self._shipped_snap = Snapshot(
+                last_index=cut, last_term=self._term_at(cut),
+                data=self.snapshot_cb(), **self._snap_config())
+        return shipped
 
     # ----- chunked dump sessions (≈ KVRangeDumpSession / KVRangeRestorer) --
 
     def _start_dump_session(self, peer: str) -> None:
+        snap = self._materialized_snap()
         sess = self._dump_sessions.get(peer)
-        if sess is not None and sess["snap"] is self.snap:
+        if sess is not None and sess["snap"] is snap:
             return  # already streaming this snapshot
         self._dump_session_seq += 1
         self._dump_sessions[peer] = {
             "id": self._dump_session_seq,
-            "snap": self.snap,
+            "snap": snap,
             "offset": 0,
             "awaiting_ack": None,   # seq in flight, stop-and-wait
             "next_seq": 0,
@@ -870,6 +898,7 @@ class RaftNode:
                 term=self.term, match_index=self.commit_index))
             return
         self.snap = snapshot
+        self._shipped_snap = None
         self.log = []
         self.commit_index = snapshot.last_index
         self.last_applied = snapshot.last_index

@@ -1,5 +1,6 @@
-"""MQTT topic constants, level parsing and the KV escape (copy of the
-parts of ``bifromq_tpu/utils/topic.py`` the match and dist planes use).
+"""MQTT topic constants, level parsing, the KV escape and the
+single-filter match rule (copy of the parts of
+``bifromq_tpu/utils/topic.py`` the match, dist and retained planes use).
 
 Reference: ``bifromq-util/src/main/java/org/apache/bifromq/util/TopicUtil.java``
 and ``TopicConst.java``.
@@ -56,3 +57,33 @@ def is_unordered_shared(topic_filter: str) -> bool:
 
 def is_ordered_shared(topic_filter: str) -> bool:
     return topic_filter.startswith(_PREFIX_ORDERED_SHARE)
+
+
+def matches(topic_levels: List[str], filter_levels: List[str]) -> bool:
+    """Single-filter MQTT match semantics, used as the parity oracle.
+
+    Implements [MQTT-4.7.1-*]: '+' matches exactly one level, '#' matches any
+    number (including zero) of trailing levels, and [MQTT-4.7.2-1]: wildcards
+    do not match a first level beginning with '$' (reference:
+    bifromq-dist-coproc-proto .../trie/TopicTrieNode.java:151 wildcardMatchable).
+    """
+    sys_first = bool(topic_levels) and topic_levels[0].startswith(SYS_PREFIX)
+    ti, fi = 0, 0
+    nt, nf = len(topic_levels), len(filter_levels)
+    while fi < nf:
+        fl = filter_levels[fi]
+        if fl == MULTI_WILDCARD:
+            # '#' must be last; matches remaining levels including none
+            if ti == 0 and sys_first:
+                return False
+            return fi == nf - 1
+        if ti >= nt:
+            return False
+        if fl == SINGLE_WILDCARD:
+            if ti == 0 and sys_first:
+                return False
+        elif fl != topic_levels[ti]:
+            return False
+        ti += 1
+        fi += 1
+    return ti == nt

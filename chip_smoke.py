@@ -124,27 +124,44 @@ default; it measures what a deeper mesh phase costs). The script
    union of the two ranges' rows (two ``TorchMatcher`` on the card). No
    publish may be degraded, and every matcher must drain;
 11. ("retained", run right after step 1, while the heap is small)
-   builds BASELINE config 4 (``config_retained``: one
-   tenant's retained topics, cut from 5M to 1M) into
-   ``RetainedIndex(max_levels=18, k_states=16)`` on the card and serves
-   4 batches of 4096 ``probe_filters`` through ``match_batch`` with
-   ``limit=10``, then unlimited, with the launch counts reset just before
-   and read just after (the hash on every batch, no other kernel): every
-   limit-10 row has the host oracle's length, only matching topics and
-   no duplicate, 64 seeded rows unlimited pass the same checks and equal
-   the oracle's (the rows the host matcher served are counted); K1 is held
-   against its plain version on the phase's filters; one batch is timed
-   stage by stage; then 2,048 set / clear mutations are patched in place
-   and flushed one by one, with a checked scan after every 256, no full
-   compile, and the device tables equal to the host arenas at the end;
+   retains BASELINE config 4 (``config_retained``: one tenant's retained
+   topics, cut from 5M to 1M, each with a seeded payload) through
+   ``RetainService.retain``: consensus on the replicated retain range,
+   whose ``RetainCoProc`` patches the range's ``RetainedIndex(
+   max_levels=18, k_states=16)`` on the card; prints retains/s and the
+   first scan's compile. On that index it serves 4 batches of 4096
+   ``probe_filters`` through ``match_batch`` with ``limit=10``, then the
+   first unlimited, with the launch counts reset just before and read just
+   after (the hash on every batch, no other kernel): every limit-10 row
+   has the host oracle's length, only matching topics and no duplicate,
+   64 seeded rows unlimited pass the same checks and equal the oracle's
+   (the rows the host matcher served are counted); K1 is held against
+   its plain version on the phase's filters; one batch is timed stage by
+   stage. Then the same 4 batches through ``RetainService.match_batch``
+   (the range's scan plane: result cache, dispatch ring, watchdog,
+   breaker), launch counts reset just before and read just after (K1
+   once a batch, nothing else): every row equals the index's limit-10
+   row in order, with the written payloads; 256 of the filters served
+   twice, the second time all cache hits with no launch. Then 2,048 set
+   / clear mutations
+   through ``retain``, each patched in place and flushed, each evicting
+   exactly the cached filters it matches, with a checked service scan
+   after every 256, no full compile, and the device tables equal to the
+   host arenas at the end. Last, the restart: config 4's first 100K
+   topics retained through a service of their own, then a second
+   ``RetainService`` over the same engine, which rebuilds its index from
+   KV and serves the 64 seeded rows as the first did;
 12. ("device-chaos") on a 400-subscription matcher: a dispatch error,
    a hang under a 0.25 s watchdog deadline with the batch held on the
    card by a sleep kernel (the quarantine keeps the result until its
    CUDA event completes, then a sweep empties it) and a forced-open
    breaker (served with no launch, re-closed by the half-open canary),
    each served exactly from the host oracle and followed by a batch the
-   card serves exactly. No batch outside this phase may be degraded, and
-   every device breaker must read closed at the end.
+   card serves exactly; then the same three on a 400-topic
+   ``RetainService``'s scan plane, and a ``NativeLibError`` raised in
+   the plane, which must propagate. No batch or scan outside this phase
+   may be degraded, and every device breaker must read closed at the
+   end.
 
 The config-2 and mesh matchers run with the match cache off, as
 bench.py's config 2 does, so every batch reaches the card. It prints the
@@ -2093,6 +2110,22 @@ RET_MUTATIONS = 2048
 RET_SCAN_EVERY = 256
 RET_CHURN_BATCH = 512
 RET_ORACLE_PROCS = 4
+# cuts that keep the script inside its time (PERF.md section 4): the
+# unlimited leg serves 2 of the 4 batches, and the restart leg reopens a
+# service of 100K topics, not the 1M one
+RET_UNLIMITED_BATCHES = 2
+RET_RESTART_TOPICS = 100_000
+RET_HIT_ROWS = 256       # half the scan cache's 512 filters a tenant
+RET_ALL = 1 << 30        # a service limit no row reaches
+# the key of the seeded payload each retained topic carries
+RET_PAYLOAD_KEY = b"config4-retained-seed-4"
+
+
+def ret_payload(topic: str) -> bytes:
+    """The payload the phase writes for ``topic``, from the seed."""
+    import hashlib
+    return hashlib.blake2b(topic.encode(), digest_size=16,
+                           key=RET_PAYLOAD_KEY).digest()
 
 # the oracle worker's own copy of the config-4 trie (set in the worker)
 _RET_TRIE = None
@@ -2143,26 +2176,46 @@ def check_limited(rows, filters, oracle_lens, what: str) -> None:
 
 def retained_phase(torch, D, T, workloads, smi, dev):
     """BASELINE config 4 on the card: ``config_retained(1_000_000,
-    seed=0)`` (cut from 5M) in a ``RetainedIndex(max_levels=18,
-    k_states=16)``, probed with ``probe_filters(seed=2)``.
+    seed=0)`` (cut from 5M), each topic with a seeded payload, retained
+    through ``RetainService.retain`` (consensus on the retain range, the
+    coproc patching the range's ``RetainedIndex(max_levels=18,
+    k_states=16)``), probed with ``probe_filters(seed=2)``.
 
-    - Serve 4 batches of 4096 filters with ``limit=10``, then the same 4
-      unlimited, with the launch counts reset just before and read just
-      after: K1 must have launched on each batch, K2, K3 and K4 never.
-      Every limit-10 row has the oracle's length (``match_filter_host``
-      with ``limit=10``, in spawned workers), only topics that match the
-      filter by the MQTT rule and no duplicate; 64 seeded rows unlimited
-      pass the same checks and equal the oracle's, sorted, and are served
-      once more as one batch to count the rows the host matcher served
-      (``RetainedIndex.host_rows``). K1's filter hashes equal its plain
-      version on one batch, and the probes equal the host tokenizer's.
-    - Time one limit-10 batch stage by stage.
-    - Apply 2,048 seeded set / clear mutations, each patched and flushed
-      to the card, with a 512-filter limit-10 scan after every 256 (64
+    - Print retains/s and the compile the first scan runs.
+    - On the service's index: serve 4 batches of 4096 filters with
+      ``limit=10``, then the first unlimited, with the launch counts reset
+      just before and read just after: K1 must have launched on each
+      batch, K2, K3 and K4 never. Every limit-10 row has the oracle's
+      length (``match_filter_host`` with ``limit=10``, in spawned
+      workers), only topics that match the filter by the MQTT rule and no
+      duplicate; 64 seeded rows unlimited pass the same checks and equal
+      the oracle's, sorted, and are served once more as one batch to
+      count the rows the host matcher served (``RetainedIndex.
+      host_rows``). K1's filter hashes equal its plain version on one
+      batch, and the probes equal the host tokenizer's. One limit-10
+      batch is timed stage by stage.
+    - Serve the same 4 batches through ``RetainService.match_batch`` at
+      ``limit=10`` (the range's scan plane), launch counts reset just
+      before and read just after (K1 once a batch, nothing else): every
+      row's topics equal, in order, the index's limit-10 row, and every
+      hit carries its topic's payload. Then 256 distinct filters of the
+      phase served twice: every row of the second a cache hit, rows
+      identical to the first's and to the index's, no launch.
+    - Send 2,048 seeded set / clear mutations through ``retain`` (a clear
+      is an empty payload), each flushed to the card: after each, the
+      cached filters the mutated topic matches, and only those, are
+      evicted. A 512-filter limit-10 service scan after every 256 (64
       sampled rows checked as above) and the churned topics' own filters
-      served unlimited and equal to the oracle. No full compile may run,
-      and at the end the five device tables equal the host arenas.
-    Returns the phase's summary."""
+      served unlimited by the index and equal to the oracle. No full
+      compile may run, and at the end the five device tables equal the
+      host arenas.
+    - Restart (cut to the first 100K topics, retained through a service
+      of their own): stop the service and open a second one over the
+      same engine; its index rebuilds from KV (``RetainCoProc.reset``).
+      Its rows for the 64 seeded filters equal the first service's
+      (topics and payloads, as sets: a rebuilt index orders its slots by
+      key).
+    No scan may be degraded. Returns the phase's summary."""
     import multiprocessing
     from concurrent.futures import ProcessPoolExecutor
     filters = workloads.probe_filters(RET_BATCH * RET_BATCHES, seed=2)
@@ -2172,43 +2225,119 @@ def retained_phase(torch, D, T, workloads, smi, dev):
     pool = ProcessPoolExecutor(
         RET_ORACLE_PROCS, mp_context=multiprocessing.get_context("spawn"),
         initializer=_oracle_init, initargs=(RET_TOPICS,))
+    import asyncio
+    import gc
+    loop = asyncio.new_event_loop()
+    gc_timer = GCTimer()
+    gc.callbacks.append(gc_timer)
     try:
         pending = [pool.submit(_oracle_limited, filters[i:i + 256])
                    for i in range(0, len(filters), 256)]
-        out = _retained_serve(torch, D, T, workloads, smi, dev, filters,
-                              pending)
+        out, exact_q = _retained_serve(
+            torch, D, T, workloads, smi, dev, filters, pending,
+            loop.run_until_complete)
     finally:
         pool.shutdown(wait=True, cancel_futures=True)
+    try:
+        out["restart"] = _retained_restart(
+            torch, dev, smi, workloads, exact_q, loop.run_until_complete)
+    finally:
+        loop.close()
+        gc.callbacks.remove(gc_timer)
+    out["seconds"] += out["restart"]["seconds"]
+    out["gc_s"] = gc_timer.seconds
+    print(json.dumps({"phase": "retained-total", "card": smi,
+                      "seconds": out["seconds"], "gc_s": gc_timer.seconds}),
+          flush=True)
     return out
 
 
-def _retained_serve(torch, D, T, workloads, smi, dev, filters, pending):
-    """The body of :func:`retained_phase`; ``pending`` holds the futures
-    of the limit-10 oracle's lengths of ``filters``, in order."""
+class GCTimer:
+    """A ``gc.callbacks`` hook summing the seconds the collector runs."""
+
+    def __init__(self) -> None:
+        self.seconds = 0.0
+        self._t0 = None
+
+    def __call__(self, phase, info) -> None:
+        if phase == "start":
+            self._t0 = time.perf_counter()
+        elif self._t0 is not None:
+            self.seconds += time.perf_counter() - self._t0
+            self._t0 = None
+
+
+def _retain_service(dev, engine=None):
+    from bifromq_tpu_torch.models.retained import RetainedIndex
+    from bifromq_tpu_torch.plugin.events import CollectingEventCollector
+    from bifromq_tpu_torch.retain.service import RetainService
+    return RetainService(CollectingEventCollector(), engine=engine,
+                         index=RetainedIndex(max_levels=18, k_states=16,
+                                             device=dev))
+
+
+def _retain_msg(i: int, topic: str, clear: bool = False):
+    from bifromq_tpu_torch.types import Message, QoS
+    return Message(message_id=i, pub_qos=QoS.AT_LEAST_ONCE,
+                   payload=b"" if clear else ret_payload(topic),
+                   timestamp=0, is_retain=True)
+
+
+def check_hits(rows, what: str) -> None:
+    """Every service hit carries its topic's seeded payload."""
+    for i, row in enumerate(rows):
+        for tp, msg in row:
+            if msg.payload != ret_payload(tp):
+                raise AssertionError(f"{what} row {i}: {tp} carries "
+                                     f"{msg.payload!r}")
+
+
+def _retained_serve(torch, D, T, workloads, smi, dev, filters, pending,
+                    run):
+    """The body of :func:`retained_phase` up to the restart; ``pending``
+    holds the futures of the limit-10 oracle's lengths of ``filters``, in
+    order, and ``run`` runs a coroutine on the phase's event loop.
+    Returns the summary and the 64 seeded queries."""
     import random
 
     import numpy as np
 
     from bifromq_tpu_torch.models.automaton import tokenize_filters
-    from bifromq_tpu_torch.models.retained import (RetainedIndex,
-                                                   match_filter_host)
+    from bifromq_tpu_torch.models.retained import match_filter_host
     from bifromq_tpu_torch.ops import retained as R
+    from bifromq_tpu_torch.types import ClientInfo
     from bifromq_tpu_torch.utils import nativelib
     t_phase = time.perf_counter()
+    marks = {}      # seconds since the phase began, at each leg's start
+
+    def mark(name):
+        marks[name] = time.perf_counter() - t_phase
     t0 = time.perf_counter()
     topics = workloads.config_retained(RET_TOPICS, seed=0)["tenant0"]
     gen_s = time.perf_counter() - t0
-    idx = RetainedIndex(max_levels=18, k_states=16, device=dev)
+    svc = _retain_service(dev)
+    coproc = next(iter(svc.kvstore.coprocs.values()))
+    plane = coproc.scan_plane
+    pub = ClientInfo(tenant_id="tenant0")
+
+    async def load():
+        for i, levels in enumerate(topics):
+            tp = "/".join(levels)
+            await svc.retain(pub, tp, _retain_msg(i, tp))
     t0 = time.perf_counter()
-    for levels in topics:
-        idx.add_topic("tenant0", levels, "/".join(levels))
-    add_s = time.perf_counter() - t0
+    run(load())
+    load_s = time.perf_counter() - t0
+    idx = svc.index
+    if svc.topic_count("tenant0") != RET_TOPICS \
+            or idx.topic_count("tenant0") != RET_TOPICS:
+        raise AssertionError("the retained load lost topics")
     t0 = time.perf_counter()
-    ct = idx.refresh()
+    ct = idx.refresh()      # the compile the first scan would run
     torch.cuda.synchronize()
     compile_s = time.perf_counter() - t0
     tabs = idx._device_tables
-    build = {"topics": RET_TOPICS, "generate_s": gen_s, "add_s": add_s,
+    build = {"topics": RET_TOPICS, "generate_s": gen_s,
+             "retain_s": load_s, "retains_per_s": RET_TOPICS / load_s,
              "compile_s": compile_s, "node_rows": int(ct.n_live),
              "node_capacity": int(ct.node_tab.shape[0]),
              "device_table_bytes": {
@@ -2222,8 +2351,9 @@ def _retained_serve(torch, D, T, workloads, smi, dev, filters, pending):
                for i in range(RET_BATCHES)]
     idx.match_batch(batches[0], limit=RET_LIMIT)      # warm
     idx.match_batch(batches[0][:64])
+    mark("index_scans")
     rng = random.Random(5)
-    exact_rows = sorted(rng.sample(range(RET_BATCH * RET_BATCHES),
+    exact_rows = sorted(rng.sample(range(RET_BATCH * RET_UNLIMITED_BATCHES),
                                    RET_EXACT_ROWS))
     D.reset_launches()
     native0 = nativelib.CALLS["retained_walk"]
@@ -2238,7 +2368,7 @@ def _retained_serve(torch, D, T, workloads, smi, dev, filters, pending):
     host0 = idx.host_rows
     matched = 0
     t0 = time.perf_counter()
-    for b, q in enumerate(batches):
+    for b, q in enumerate(batches[:RET_UNLIMITED_BATCHES]):
         res = idx.match_batch(q)
         matched += sum(len(r) for r in res)
         for i in exact_rows:
@@ -2247,14 +2377,15 @@ def _retained_serve(torch, D, T, workloads, smi, dev, filters, pending):
         del res
     unlim_s = time.perf_counter() - t0
     host_unlim = idx.host_rows - host0
-    launches = {k: v.launches for k, v in D.KERNELS.items()}
+    launches = _launches(D)
     native_calls = nativelib.CALLS["retained_walk"] - native0
-    if launches["blake2b_levels"] != 2 * RET_BATCHES or any(
-            n for k, n in launches.items() if k != "blake2b_levels"):
+    if launches["blake2b_levels"] != RET_BATCHES + RET_UNLIMITED_BATCHES \
+            or any(n for k, n in launches.items() if k != "blake2b_levels"):
         raise AssertionError(f"the retained path launched {launches}")
     matched_lim = sum(len(r) for r in limited)
 
     # ---- the checks: every limit-10 row, 64 rows unlimited
+    mark("index_checks")
     t0 = time.perf_counter()
     oracle_lens = [n for f in pending for n in f.result(timeout=600)]
     oracle_wait_s = time.perf_counter() - t0
@@ -2275,7 +2406,8 @@ def _retained_serve(torch, D, T, workloads, smi, dev, filters, pending):
                                  f"{len(want)}")
     # the same rows again as one batch: how many the host matcher served
     host0 = idx.host_rows
-    again = idx.match_batch([("tenant0", filters[i]) for i in exact_rows])
+    exact_q = [("tenant0", filters[i]) for i in exact_rows]
+    again = idx.match_batch(exact_q)
     host_exact = idx.host_rows - host0
     if [sorted(g) for g in again] != wants:
         raise AssertionError("the unlimited rows served as one batch differ "
@@ -2322,39 +2454,116 @@ def _retained_serve(torch, D, T, workloads, smi, dev, filters, pending):
     staged("expand_ms", idx.expand_scan, prep, fetched, limit=RET_LIMIT)
     overflow_rows = int(fetched[2][:RET_BATCH].sum())
 
-    # ---- mutations: set / clear, patched in place and flushed
+    # ---- the service path: RetainService.match_batch at limit 10
+    mark("service")
+    D.reset_launches()
+    svc_rows = []
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for q in batches:
+        svc_rows.extend(run(svc.match_batch(q, RET_LIMIT)))
+    svc_s = time.perf_counter() - t0
+    svc_launches = _launches(D)
+    if svc_launches["blake2b_levels"] != RET_BATCHES or any(
+            n for k, n in svc_launches.items() if k != "blake2b_levels"):
+        raise AssertionError(f"the retain service launched {svc_launches}")
+    for i, (row, want) in enumerate(zip(svc_rows, limited)):
+        if [tp for tp, _ in row] != want:
+            raise AssertionError(f"service row {i} {filters[i]}: "
+                                 f"{[tp for tp, _ in row][:4]}, index "
+                                 f"{want[:4]}")
+    check_hits(svc_rows, "service")
+    # 256 distinct filters of the phase (the cache holds 512 a tenant),
+    # served once, then again: every row of the second from the cache
+    seen, hit_rows = set(), []
+    for i in range(len(filters) - 1, -1, -1):
+        key = tuple(filters[i])
+        if key not in seen:
+            seen.add(key)
+            hit_rows.append(i)
+            if len(hit_rows) == RET_HIT_ROWS:
+                break
+    hit_q = [("tenant0", filters[i]) for i in hit_rows]
+    first = run(svc.match_batch(hit_q, RET_LIMIT))
+    hits0 = plane.cache.hits
+    D.reset_launches()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    again = run(svc.match_batch(hit_q, RET_LIMIT))
+    hit_ms = (time.perf_counter() - t0) * 1e3
+    hit_launches = _launches(D)
+    if plane.cache.hits - hits0 != RET_HIT_ROWS \
+            or any(hit_launches.values()):
+        raise AssertionError(f"the repeated batch: {plane.cache.hits - hits0}"
+                             f" cache hits of {RET_HIT_ROWS}, launches "
+                             f"{hit_launches}")
+    if not ([[tp for tp, _ in r] for r in again]
+            == [[tp for tp, _ in r] for r in first]
+            == [limited[i] for i in hit_rows]):
+        raise AssertionError("the cached rows differ from the served ones")
+    check_hits(again, "cache hit")
+    del again, first
+    service = {"filters_per_s_limit10": RET_BATCH * RET_BATCHES / svc_s,
+               "matched_per_s_limit10":
+                   sum(len(r) for r in svc_rows) / svc_s,
+               "launches": svc_launches, "cache_hit_rows": RET_HIT_ROWS,
+               "cache_hit_batch_ms": hit_ms,
+               "cache": plane.cache.snapshot()}
+    del svc_rows
+
+    # ---- mutations through retain: set / clear, patched and flushed,
+    # each evicting exactly the cached filters its topic matches
+    mark("mutations")
     mrng = random.Random(7)
     names = [f"l{i}" for i in range(1000)]
     rebuilds0, compactions0 = idx.rebuilds, idx.compactions
     flushes0 = idx.patch_flushes
     patch_s, scans, churned, cleared = [], [], [], []
+    cache = plane.cache
+    evicted, replaced = 0, 0
+    values = coproc.values
     for m in range(RET_MUTATIONS):
         roll = mrng.random()
         if roll < 0.5:
             levels = [mrng.choice(names[:50])
                       for _ in range(mrng.randint(1, 4))] + [f"m{m}"]
-            op = (idx.add_topic, levels)
+            clear = False
         elif roll < 0.6 and cleared:
-            op = (idx.add_topic, cleared.pop())       # resurrect
+            levels, clear = cleared.pop(), False      # resurrect
         else:
-            op = (idx.remove_topic, topics[mrng.randrange(len(topics))])
+            levels, clear = topics[mrng.randrange(len(topics))], True
+        tp = "/".join(levels)
+        existed = tp in values.get("tenant0", {})
+        before = set(cache._d.get("tenant0", ()))
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        changed = op[0]("tenant0", op[1], "/".join(op[1]))
+        run(svc.retain(pub, tp, _retain_msg(RET_TOPICS + m, tp, clear)))
         idx.flush_device()
         torch.cuda.synchronize()
         patch_s.append(time.perf_counter() - t0)
+        changed = existed if clear else not existed
+        replaced += existed and not clear
+        after = set(cache._d.get("tenant0", ()))
+        want_gone = {k for k in before if filter_matches(tp, k[0])} \
+            if changed else set()
+        if before - after != want_gone or after - before:
+            raise AssertionError(
+                f"mutation {m} {tp!r}: evicted {sorted(before - after)[:4]}"
+                f", expected {sorted(want_gone)[:4]}")
+        evicted += len(want_gone)
         if changed:
-            churned.append(op[1])
-            if op[0] == idx.remove_topic:
-                cleared.append(op[1])
+            churned.append(levels)
+            if clear:
+                cleared.append(levels)
         if (m + 1) % RET_SCAN_EVERY == 0:
             k = (m + 1) // RET_SCAN_EVERY
             fs = workloads.probe_filters(RET_CHURN_BATCH, seed=10 + k)
             t0 = time.perf_counter()
-            got = idx.match_batch([("tenant0", f) for f in fs],
-                                  limit=RET_LIMIT)
+            got = run(svc.match_batch([("tenant0", f) for f in fs],
+                                      RET_LIMIT))
             scan_ms = (time.perf_counter() - t0) * 1e3
+            check_hits(got, f"churn scan {k}")
+            got = [[tp for tp, _ in r] for r in got]
             sample = list(range(0, RET_CHURN_BATCH,
                                 RET_CHURN_BATCH // RET_EXACT_ROWS))
             trie = idx.tries["tenant0"]
@@ -2380,9 +2589,11 @@ def _retained_serve(torch, D, T, workloads, smi, dev, filters, pending):
     out = {
         "phase": "retained", "card": smi, **build,
         "batch": RET_BATCH, "batches": RET_BATCHES, "limit": RET_LIMIT,
+        "unlimited_batches": RET_UNLIMITED_BATCHES,
         "filters_per_s_limit10": RET_BATCH * RET_BATCHES / lim_s,
         "matched_per_s_limit10": matched_lim / lim_s,
-        "filters_per_s_unlimited": RET_BATCH * RET_BATCHES / unlim_s,
+        "filters_per_s_unlimited":
+            RET_BATCH * RET_UNLIMITED_BATCHES / unlim_s,
         "matched_per_s_unlimited": matched / unlim_s,
         "matched_unlimited": matched, "native_walker_calls": native_calls,
         "overflow_rows_one_batch": overflow_rows, "stages": stages,
@@ -2392,13 +2603,15 @@ def _retained_serve(torch, D, T, workloads, smi, dev, filters, pending):
         "host_rows": {"limit10": host_lim, "unlimited": host_unlim,
                       "exact_rows": host_exact},
         "k1_max_abs_err": k1_err,
-        "launches": launches,
+        "launches": launches, "service": service,
         "mutations": RET_MUTATIONS, "patch_apply_ms": _pcts(patch_s),
+        "replaced": replaced, "cache_evictions_checked": evicted,
         "churn_scans": scans,
         "rebuilds": idx.rebuilds - rebuilds0,
         "compactions": idx.compactions - compactions0,
         "patch_flushes": idx.patch_flushes - flushes0,
         "patch": base.patch_stats(), "tables_unequal": unequal,
+        "degraded": dict(plane.degraded_total), "marks_s": marks,
         "seconds": time.perf_counter() - t_phase}
     print(json.dumps(out), flush=True)
     if idx.rebuilds != rebuilds0 or idx.compactions != compactions0:
@@ -2408,6 +2621,68 @@ def _retained_serve(torch, D, T, workloads, smi, dev, filters, pending):
     if unequal:
         raise AssertionError(f"retained device tables differ from the host "
                              f"arenas: {unequal}")
+    if plane.degraded_total:
+        raise AssertionError(f"retained scans were degraded: "
+                             f"{plane.degraded_total}")
+    run(svc.stop())
+    return out, exact_q
+
+
+def _retained_restart(torch, dev, smi, workloads, exact_q, run):
+    """Config 4's first ``RET_RESTART_TOPICS`` topics retained through a
+    ``RetainService``, whose rows for the 64 seeded filters are kept;
+    then a second ``RetainService`` over its engine: its index rebuilds
+    from KV by ``reset``, and its rows must equal the first's. Returns
+    the leg's summary."""
+    from bifromq_tpu_torch.types import ClientInfo
+    t_leg = time.perf_counter()
+    topics = workloads.config_retained(RET_RESTART_TOPICS,
+                                       seed=0)["tenant0"]
+    first = _retain_service(dev)
+    pub = ClientInfo(tenant_id="tenant0")
+
+    async def load():
+        for i, levels in enumerate(topics):
+            tp = "/".join(levels)
+            await first.retain(pub, tp, _retain_msg(i, tp))
+    t0 = time.perf_counter()
+    run(load())
+    load_s = time.perf_counter() - t0
+    want = run(first.match_batch(exact_q, RET_ALL))
+    check_hits(want, "restart, first service")
+    want_rows = [sorted((tp, msg.payload) for tp, msg in r) for r in want]
+    del want
+    run(first.stop())
+    engine = first.kvstore.engine
+    del first
+    t0 = time.perf_counter()
+    svc = _retain_service(dev, engine)
+    reset_s = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    got = run(svc.match_batch(exact_q, RET_ALL))
+    torch.cuda.synchronize()
+    first_scan_s = time.perf_counter() - t0
+    check_hits(got, "restart")
+    got = [sorted((tp, msg.payload) for tp, msg in r) for r in got]
+    plane = next(iter(svc.kvstore.coprocs.values())).scan_plane
+    out = {"topics": svc.topic_count("tenant0"), "retain_s": load_s,
+           "reset_s": reset_s,
+           "first_scan_s": first_scan_s,
+           "compile_s": svc.index.compile_time_s,
+           "rows": len(got), "matched": sum(len(r) for r in got),
+           "degraded": dict(plane.degraded_total),
+           "seconds": time.perf_counter() - t_leg}
+    print(json.dumps({"phase": "retained-restart", "card": smi, **out}),
+          flush=True)
+    if got != want_rows:
+        bad = [i for i, (g, w) in enumerate(zip(got, want_rows)) if g != w]
+        raise AssertionError(f"the restarted service's rows {bad[:8]} differ "
+                             f"from the first service's")
+    if plane.degraded_total:
+        raise AssertionError(f"restart scans were degraded: "
+                             f"{plane.degraded_total}")
+    run(svc.stop())
     return out
 
 
@@ -2419,7 +2694,9 @@ def device_chaos_phase(torch, D, workloads, smi, dev):
     so the quarantine must hold it until the event completes), and a
     forced-open breaker that serves with no launch and re-closes through
     the half-open canary. Each case ends with a batch the card serves,
-    undegraded and equal to the oracle. Returns the phase's summary."""
+    undegraded and equal to the oracle. Then the same three cases on a
+    ``RetainService`` of 400 retained topics, through its scan plane
+    (:func:`retained_chaos`). Returns the phase's summary."""
     import asyncio
 
     from bifromq_tpu_torch.models.matcher import TorchMatcher
@@ -2523,6 +2800,9 @@ def device_chaos_phase(torch, D, workloads, smi, dev):
             raise AssertionError(f"device-chaos breaker: {c}")
         cases["breaker"] = c
         degraded = FABRIC.get(FabricMetric.MATCH_DEGRADED) - deg0
+        deg0 = FABRIC.get(FabricMetric.MATCH_DEGRADED)
+        retained = retained_chaos(torch, D, workloads, dev)
+        retained_degraded = FABRIC.get(FabricMetric.MATCH_DEGRADED) - deg0
     finally:
         inj.reset()
         for k, v in pinned.items():
@@ -2531,12 +2811,172 @@ def device_chaos_phase(torch, D, workloads, smi, dev):
             else:
                 os.environ[k] = v
     out = {"phase": "device-chaos", "card": smi, "rows": len(queries),
-           "cases": cases, "match_degraded": degraded}
+           "cases": cases, "match_degraded": degraded,
+           "retained": retained,
+           "retained_match_degraded": retained_degraded}
     print(json.dumps(out), flush=True)
     if degraded != 3 * len(queries):
         raise AssertionError(f"device-chaos: {degraded} degraded rows, "
                              f"expected {3 * len(queries)}")
+    if retained_degraded != 3 * retained["rows"]:
+        raise AssertionError(f"device-chaos, retained: {retained_degraded} "
+                             f"degraded rows, expected "
+                             f"{3 * retained['rows']}")
     return out
+
+
+def retained_chaos(torch, D, workloads, dev):
+    """The scan plane's failure boundary on the card: a ``RetainService``
+    of 400 of config 4's topics, 64 ``probe_filters`` at ``limit=10``
+    served through ``RetainService.match_batch`` with a dispatch
+    ``error`` rule, a ``hang`` rule past the pinned 0.25 s deadline while
+    a sleep kernel holds the scan on the card (the quarantine keeps its
+    result until the CUDA event completes), and a forced-open breaker
+    (no launch; the half-open canary re-closes it). Each is served
+    exactly from the host oracle and followed by a scan the card serves;
+    the cache is emptied before each case, so every scan reaches the
+    plane's device leg. Last, a ``NativeLibError`` raised inside the
+    plane must propagate out of ``match_batch``, undegraded. Runs with
+    the caller's deadline and breaker recovery pinned. Returns the
+    cases."""
+    import asyncio
+
+    from bifromq_tpu_torch.models.retained import match_filter_host
+    from bifromq_tpu_torch.resilience.faults import get_injector
+    from bifromq_tpu_torch.types import ClientInfo
+    from bifromq_tpu_torch.utils.nativelib import NativeLibError
+
+    inj = get_injector()
+    loop = asyncio.new_event_loop()
+    run = loop.run_until_complete
+    try:
+        svc = _retain_service(dev)
+        pub = ClientInfo(tenant_id="tenant0")
+        topics = ["/".join(lv) for lv in
+                  workloads.config_retained(400, seed=0)["tenant0"]]
+
+        async def load():
+            for i, tp in enumerate(topics):
+                await svc.retain(pub, tp, _retain_msg(i, tp))
+        run(load())
+        coproc = next(iter(svc.kvstore.coprocs.values()))
+        plane, idx = coproc.scan_plane, coproc.index
+        br = plane.device_breaker
+        queries = [("tenant0", f)
+                   for f in workloads.probe_filters(64, seed=3)]
+        trie = idx.tries["tenant0"]
+        oracle = [match_filter_host(trie, f, limit=RET_LIMIT)
+                  for _, f in queries]
+        full = [set(match_filter_host(trie, f)) for _, f in queries]
+
+        def serve(sync=True):
+            """One scan through the service. ``sync=False`` leaves the
+            card's queue alone after it (the hang case's held result)."""
+            plane.cache.bump_all()      # every row reaches the device leg
+            deg0 = dict(plane.degraded_total)
+            torch.cuda.synchronize()
+            D.reset_launches()
+            rows = run(svc.match_batch(queries, RET_LIMIT))
+            if sync:
+                torch.cuda.synchronize()
+            check_hits(rows, "retained chaos")
+            rows = [[tp for tp, _ in r] for r in rows]
+            reasons = {k: v - deg0.get(k, 0)
+                       for k, v in plane.degraded_total.items()
+                       if v != deg0.get(k, 0)}
+            card = all(len(r) == len(o) and set(r) <= f
+                       for r, o, f in zip(rows, oracle, full))
+            return {"oracle_exact": rows == oracle, "card_exact": card,
+                    "degraded": reasons, "launches": _launches(D),
+                    "breaker": br.state}
+
+        def clean(label):
+            r = serve()
+            if not (r["card_exact"] and not r["degraded"]
+                    and r["launches"]["blake2b_levels"]):
+                raise AssertionError(f"retained chaos {label}: the recovery "
+                                     f"scan was not served on the card: {r}")
+            return r
+
+        cases = {"warm": clean("warm")}
+        # 1. a dispatch error degrades to the oracle
+        inj.add_rule(service="tpu-device", method="dispatch",
+                     action="error", max_hits=1)
+        c = {"faulted": serve()}
+        inj.reset()
+        c["recovered"] = clean("error")
+        if not (c["faulted"]["oracle_exact"]
+                and c["faulted"]["degraded"] == {"device_error": 1}):
+            raise AssertionError(f"retained chaos error: {c}")
+        cases["error"] = c
+        # 2. a hang times out while a sleep kernel holds the scan
+        ring = plane._ring
+        real_dispatch = idx.dispatch_scan
+
+        def held_dispatch(prep, **kw):
+            torch.cuda._sleep(4_000_000_000)     # ~2 s at 1.98 GHz
+            return real_dispatch(prep, **kw)
+        idx.dispatch_scan = held_dispatch
+        inj.add_rule(service="tpu-device", method="dispatch", action="hang")
+        t0 = time.perf_counter()
+        try:
+            c = {"faulted": serve(sync=False)}
+        finally:
+            del idx.dispatch_scan
+            inj.reset()
+        c["faulted"]["seconds"] = time.perf_counter() - t0
+        c["timeouts_total"] = ring.timeouts_total
+        ring.quarantine.sweep()
+        c["held_while_event_pending"] = len(ring.quarantine)
+        torch.cuda.synchronize()
+        ring.quarantine.sweep()
+        c["held_after_event"] = len(ring.quarantine)
+        c["recovered"] = clean("hang")
+        if not (c["faulted"]["oracle_exact"]
+                and c["faulted"]["degraded"] == {"timeout": 1}
+                and c["timeouts_total"] == 1
+                and c["held_while_event_pending"] == 1
+                and c["held_after_event"] == 0):
+            raise AssertionError(f"retained chaos hang: {c}")
+        cases["hang"] = c
+        # 3. an open breaker serves with no launch; the canary closes it
+        br.force_open()
+        c = {"open": serve()}
+        time.sleep(br.recovery_time + 0.05)
+        c["canary"] = serve()
+        c["recovered"] = clean("breaker")
+        if not (c["open"]["oracle_exact"]
+                and c["open"]["degraded"] == {"breaker": 1}
+                and not any(c["open"]["launches"].values())
+                and c["canary"]["card_exact"] and not c["canary"]["degraded"]
+                and c["canary"]["launches"]["blake2b_levels"]
+                and c["canary"]["breaker"] == "closed"):
+            raise AssertionError(f"retained chaos breaker: {c}")
+        cases["breaker"] = c
+        # 4. a fault of the program propagates, undegraded
+        def broken_walker(*a, **kw):
+            raise NativeLibError("retained walker failed to build")
+        idx.expand_scan = broken_walker
+        plane.cache.bump_all()
+        deg0 = dict(plane.degraded_total)
+        try:
+            run(svc.match_batch(queries, RET_LIMIT))
+            raise AssertionError("a NativeLibError in the scan plane was "
+                                 "served around")
+        except NativeLibError:
+            pass
+        finally:
+            del idx.expand_scan
+        if plane.degraded_total != deg0 or br.state != "closed":
+            raise AssertionError("the NativeLibError degraded the scan or "
+                                 "fed the breaker")
+        cases["native_lib_error"] = {"propagated": True}
+        cases["recovered"] = clean("native")
+        run(svc.stop())
+    finally:
+        inj.reset()
+        loop.close()
+    return {"topics": len(topics), "rows": len(queries), "cases": cases}
 
 
 def parse_args(argv):
@@ -2587,8 +3027,8 @@ def main(argv=None) -> int:
                       "seconds": time.perf_counter() - t0,
                       "kernels_s": kernels_s, "host_s": host_s}), flush=True)
 
-    # ---- retained: BASELINE config 4 through RetainedIndex, first, on a
-    # small heap (its index is freed when the phase returns)
+    # ---- retained: BASELINE config 4 through RetainService, first, on a
+    # small heap (its services are freed when the phase returns)
     ret = retained_phase(torch, D, T, workloads, smi, dev)
 
     t0 = time.perf_counter()
@@ -2819,7 +3259,9 @@ def main(argv=None) -> int:
                         "mesh": mesh_launches[name],
                         "pipelined": pipe["pipelined"]["launches"][name],
                         "dist": dist["publish"]["launches"][name],
-                        "retained": ret["launches"][name]},
+                        "retained": ret["launches"][name],
+                        "retain_service":
+                            ret["service"]["launches"][name]},
                     "max_abs_err": err, "ms": r["ms"],
                     "plain_ms": r["plain_ms"], "bound_ms": bound_ms(r),
                     "bound_by": bound_by(r),

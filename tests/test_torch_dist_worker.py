@@ -217,6 +217,63 @@ class TestDistWorkerCoProc:
         assert len(m.tries["T"]) == \
             len(c.coprocs[c.leader().raft.id].matcher.tries["T"])
 
+    async def test_only_the_far_peer_gets_a_snapshot(self):
+        """A deferred compaction keeps the reference's log: the snapshot
+        shipped to a peer partitioned past ``SNAPSHOT_THRESHOLD`` is cut
+        when it is asked for, and a peer only a few entries behind the
+        log's cut still catches up from the log, under a new leader whose
+        applied index ran past its cut."""
+        c = CoProcCluster(n=5)
+        old_leader = c.elect().raft.id
+        far, few, a, b = [nid for nid in c.ranges if nid != old_leader]
+        dumps = []
+        for nid, r in c.ranges.items():
+            real = r.raft._start_dump_session
+            r.raft._start_dump_session = (
+                lambda peer, nid=nid, real=real:
+                dumps.append((nid, peer)) or real(peer))
+        rest = set(c.ranges) - {far}
+        c.transport.partition({far}, rest)
+        for i in range(RaftNode.SNAPSHOT_THRESHOLD + 30):
+            await c.drive(c.ranges[old_leader].mutate_coproc(
+                dw.encode_add_route("T", mk_route(f"t/{i}",
+                                                  receiver=f"r{i}"))))
+        c.transport.partition({far}, {few}, rest - {few})
+        for i in range(5):
+            await c.drive(c.ranges[old_leader].mutate_coproc(
+                dw.encode_add_route("T", mk_route(f"u/{i}"))))
+        lead = c.ranges[old_leader].raft
+        c.run_until(lambda: all(c.ranges[n].raft.last_applied
+                                == lead.last_applied for n in (a, b)))
+        # a new leader among {a, b}, elected with the lagging peer's vote
+        c.transport.partition({far}, {old_leader}, {few, a, b})
+        c.run_until(lambda: any(c.ranges[n].is_leader
+                                and c.ranges[n].raft.term > lead.term
+                                for n in (a, b)))
+        new = next(c.ranges[n].raft for n in (a, b)
+                   if c.ranges[n].is_leader)
+        c.run_until(lambda: c.ranges[few].raft.commit_index
+                    >= new.commit_index > lead.last_applied)
+        # the far peer catches up from the new leader, then the old one
+        c.transport.partition({old_leader}, set(c.ranges) - {old_leader})
+        c.run_until(lambda: c.ranges[far].raft.commit_index
+                    >= new.commit_index, max_ticks=5000)
+        c.transport.heal()
+        c.run_until(lambda: all(r.raft.commit_index >= new.commit_index
+                                for r in c.ranges.values()),
+                    max_ticks=5000)
+        # the new leader shipped a snapshot cut past its log's offset,
+        # which stayed where its own compaction put it
+        assert {peer for _, peer in dumps} == {far} and (new.id, far) in dumps
+        assert new.snap.last_index < lead.last_applied - 5
+        assert new._shipped_snap.last_index >= lead.last_applied
+        for nid, cp in c.coprocs.items():
+            assert len(cp.matcher.tries["T"]) == \
+                RaftNode.SNAPSHOT_THRESHOLD + 35, nid
+            for tp, want in (("t/7", ["r7"]), ("u/4", ["r0"])):
+                got = [r.receiver_id for r in cp.matcher.match("T", tp).normal]
+                assert got == want, (nid, tp)
+
 
 class TestBatchCoproc:
     async def test_batch_statuses_and_incarnation_guard(self):

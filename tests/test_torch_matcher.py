@@ -250,6 +250,25 @@ for t in ("a/b", "a/c", "a/d", "$SYS/x", "b"):
     idx.add_topic("T", t.split("/"), t)
 assert idx.match_batch([("T", ["a", "+"]), ("T", ["#"]), ("T", ["b"])]) \
     == [["a/b", "a/c", "a/d"], ["a/b", "a/c", "a/d", "b"], ["b"]]
+# the retained service plane: one retain through consensus, one match
+# through the range's scan plane
+import bifromq_tpu_torch.plugin.throttler, bifromq_tpu_torch.retain.coproc
+import bifromq_tpu_torch.retain.service
+import bifromq_tpu_torch.retained_plane.cache
+import bifromq_tpu_torch.retained_plane.scan
+from bifromq_tpu_torch.retain.service import RetainService
+async def retained():
+    rs = RetainService(CollectingEventCollector(),
+                       index=RetainedIndex(device="cpu"))
+    try:
+        assert await rs.retain(ClientInfo(tenant_id="T"), "r/1", Message(
+            message_id=2, pub_qos=QoS.AT_MOST_ONCE, payload=b"v",
+            timestamp=0))
+        return await rs.match("T", ["r", "+"], 10)
+    finally:
+        await rs.stop()
+hits = asyncio.run(retained())
+assert [(t, m.payload) for t, m in hits] == [("r/1", b"v")], hits
 assert "jax" not in sys.modules, "jax imported"
 bad = [k for k in sys.modules
        if k == "bifromq_tpu" or k.startswith("bifromq_tpu.")]
